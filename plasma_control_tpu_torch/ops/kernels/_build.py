@@ -1,0 +1,141 @@
+"""Builds the CUDA sources under ``csrc/`` and binds them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, at first use, keyed by a hash of
+the sources and flags: ``build/plasma_control_tpu_torch/libpct_<hash>.so`` at
+the root of the checkout (``build/`` and ``*.so`` are git-ignored). The
+library is then loaded with ctypes. Nothing here runs at import time, so the
+CPU-only test machine can import every module.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a nonzero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["SpectralParams", "MAX_MODES", "build", "library", "check"]
+
+_PACKAGE = Path(__file__).resolve().parents[2]
+SOURCE_DIR = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE.parent / "build" / "plasma_control_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # per-kernel registers, shared memory and spills in the build log
+)
+
+MAX_MODES = 16  # kMaxModes of csrc/spectral_horizon.cu
+
+
+class SpectralParams(ctypes.Structure):
+    """By-value parameter block of ``pct_spectral_horizon`` (same layout as
+    ``SpectralParams`` in csrc/spectral_horizon.cu)."""
+
+    _fields_ = [
+        ("k", ctypes.c_int),
+        ("h", ctypes.c_int),
+        ("km", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("dt", ctypes.c_float),
+        ("half_dt", ctypes.c_float),
+        ("length", ctypes.c_float),
+        ("inv_l", ctypes.c_float),
+        ("c_ang", ctypes.c_float),
+        ("c_ang_dt", ctypes.c_float),
+        ("pe_scale", ctypes.c_float),
+        ("g", ctypes.c_float * MAX_MODES),
+        ("inv_k2", ctypes.c_float * MAX_MODES),
+    ]
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # x, out, b, n, m, inv_dx, kind, stream
+    "pct_cic_deposit": [_P, _P, _I, _I, _I, _F, _I, _P],
+    # e, x, out, b, n, m, inv_dx, kind, stream
+    "pct_cic_gather": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # x0, v0, u0c, u0s, pair_c, pair_s, pe, params, rot, stream
+    "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _P],
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in SOURCE_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libpct_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the sources unless the library for their hash exists.
+
+    Returns (library path, seconds spent compiling, nvcc's output). The
+    output goes to a temporary name first and is renamed into place, so a
+    concurrent or interrupted build never leaves a partial library.
+    """
+    path = _library_path()
+    if path.exists():
+        return path, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(SOURCE_DIR), "-o", tmp, *cu],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built library with every entry point's argtypes and restype set."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pct_error_string.argtypes = [ctypes.c_int]
+    lib.pct_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (e.g. a refused launch)."""
+    if err != 0:
+        msg = library().pct_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
