@@ -88,10 +88,11 @@ class ControlConfig:
 class MPCConfig:
     """Receding-horizon sampling MPC.
 
-    The port runs the MPPI solve with the spectral plan model at full
-    fidelity. ``control/mpc.py`` raises ``NotImplementedError`` for the
-    settings it does not run yet (CEM, the grid plan model, reduced-fidelity
-    planning, gradient refinement, chunked costs, AR(1) noise).
+    The port runs the MPPI solve with the spectral and the grid plan model,
+    at full or reduced fidelity with the fidelity guard. ``control/mpc.py``
+    raises ``NotImplementedError`` for the settings it does not run yet (CEM,
+    gradient refinement, chunked costs, AR(1) noise, the twin-corrected cost
+    of reduced-fidelity planning).
     """
 
     horizon: int = 10  # planning horizon in env steps

@@ -1,19 +1,29 @@
 """Receding-horizon sampling MPC: the main path of the control loop.
 
-The counterpart of :mod:`plasma_control_tpu.control.mpc` for the MPPI solve
-with the gridless spectral plan model at full fidelity. One control step:
+The counterpart of :mod:`plasma_control_tpu.control.mpc` for the MPPI solve,
+with both plan models and multi-fidelity planning. One control step:
 
-1. seed the candidate pool with the phase-conjugate feedback action
-   (deposit, circulant solve, FFT);
-2. sample K knot-interpolated antithetic candidates around the nominal;
-3. score all K x H candidate rollouts: on CUDA tensors always in one launch
-   of the spectral horizon kernel (:mod:`..ops.kernels.spectral_horizon`),
-   which raises for shapes beyond its limits; on CPU tensors
-   ``plan_kernel="fused"`` takes the kernel's plain version and ``"auto"`` /
-   ``"xla"`` the op-by-op scan :func:`_horizon_cost_spectral`, as the JAX
-   package's CPU ``"auto"`` does;
-4. MPPI softmax update;
-5. apply the first action through one full PIC step, record the energies
+1. reduce the plan model when ``plan_particles`` / ``plan_mesh`` ask for it
+   (strided particle subsample, coarser plan grid and actuator);
+2. seed the candidate pool with the phase-conjugate feedback action
+   (deposit, circulant solve, FFT) at the plan state;
+3. sample K knot-interpolated antithetic candidates around the nominal;
+4. score all K x H candidate rollouts. On CUDA tensors always through the
+   hand-written kernels, whatever ``plan_kernel`` and ``deposit_method``
+   say: the spectral model in one launch of the spectral horizon kernel
+   (:mod:`..ops.kernels.spectral_horizon`); the grid model with
+   ``plan_integrator="kdk"`` in one launch of the merged-kick horizon kernel,
+   with ``"leapfrog"`` in H launches of the fused leapfrog step
+   (:mod:`..ops.kernels.fused_step`), with ``"env"`` as a Yoshida-4 step
+   batched over K through the CIC kernels. On CPU tensors the op-by-op
+   counterparts run (K as a batch dimension, a loop over H), as the JAX
+   package's CPU ``"auto"`` does; ``plan_kernel="fused"`` there takes the
+   spectral kernel's plain version;
+5. MPPI softmax update, then the fidelity guard: a reduced-fidelity solve
+   whose plan-frame coherent signal is not ``fidelity_guard_ratio`` times the
+   subsample's injected noise applies no drive and resets the warm start
+   (``torch.where`` on the device, no host sync);
+6. apply the first action through one full PIC step, record the energies
    and shift the nominal.
 
 JAX's ``vmap`` over candidates becomes a candidate batch dimension and its
@@ -26,23 +36,28 @@ packages the same noise. Settings off this path raise ``NotImplementedError``
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import ControlConfig, MPCConfig, SimConfig
 from ..models.pic import PlasmaState, step
 from ..models.rollout import _energies
-from ..ops.deposit import deposit
-from ..ops.fields import solve_e_mesh
-from ..ops.grid import Grid
+from ..ops.deposit import deposit, gather, shape_weights_dense
+from ..ops.fields import electric_energy, solve_e_mesh
+from ..ops.grid import Grid, make_grid
+from ..ops.integrate import yoshida4_coefficients
+from ..ops.kernels.fused_step import fused_leapfrog_step, fused_packed_horizon
 from ..ops.kernels.spectral_horizon import spectral_horizon, use_rot
-from .actuator import FourierActuator
+from .actuator import FourierActuator, make_actuator
 from .feedback import feedback_coefficients
 
-__all__ = ["MPCOutput", "candidate_costs", "knot_noise", "draw_noise", "plan", "mpc_rollout"]
+__all__ = ["MPCOutput", "candidate_costs", "knot_noise", "draw_noise", "plan",
+           "plan_fidelity_check", "mpc_rollout"]
 
 
 class MPCOutput(NamedTuple):
@@ -58,20 +73,132 @@ class MPCOutput(NamedTuple):
 
 def _check_supported(cfg: SimConfig, mpc: MPCConfig) -> None:
     """Raise for the MPC settings this port does not run yet."""
-    reduced = (mpc.plan_particles is not None and mpc.plan_particles < cfg.n_particles) or (
-        mpc.plan_mesh is not None and mpc.plan_mesh < cfg.n_mesh
-    )
     unsupported = {
         "algo='cem'": mpc.algo != "mppi",
-        "plan_model='grid'": mpc.plan_model != "spectral",
-        "reduced-fidelity planning (plan_particles / plan_mesh)": reduced,
         "gradient refinement (n_grad_iters > 0)": mpc.n_grad_iters > 0,
         "chunked candidate costs (plan_chunk)": mpc.plan_chunk is not None,
         "AR(1) candidate noise (smooth_noise > 0)": mpc.smooth_noise > 0.0,
+        "the twin-corrected plan cost (plan_correction='twin' with plan_particles)":
+            mpc.plan_correction == "twin" and _plan_frac(cfg, mpc) < 1.0,
     }
     for what, hit in unsupported.items():
         if hit:
             raise NotImplementedError(f"MPC with {what} is not ported to PyTorch yet")
+
+
+def _reduced_model(grid: Grid, cfg: SimConfig, mpc: MPCConfig, dtype=torch.float32):
+    """Static half of the multi-fidelity reduction: (plan_grid, plan_cfg),
+    the plan grid built on the device of ``grid``."""
+    plan_cfg, plan_grid = cfg, grid
+    if mpc.plan_particles is not None and mpc.plan_particles < cfg.n_particles:
+        stride = max(1, cfg.n_particles // mpc.plan_particles)
+        n_eff = -(-cfg.n_particles // stride)
+        plan_cfg = dataclasses.replace(plan_cfg, n_particles=n_eff)
+    if mpc.plan_mesh is not None and mpc.plan_mesh < cfg.n_mesh:
+        plan_cfg = dataclasses.replace(plan_cfg, n_mesh=mpc.plan_mesh)
+        plan_grid = _grid_cache(mpc.plan_mesh, cfg.length, dtype, grid.e_op.device)
+    return plan_grid, plan_cfg
+
+
+def _reduce_state(state: PlasmaState, cfg: SimConfig, mpc: MPCConfig) -> PlasmaState:
+    """Dynamic half of the reduction: the strided particle subsample, which
+    keeps the beam-ordering mixture proportions of the initial
+    distributions."""
+    if mpc.plan_particles is not None and mpc.plan_particles < cfg.n_particles:
+        stride = max(1, cfg.n_particles // mpc.plan_particles)
+        return PlasmaState(state.x[::stride], state.v[::stride])
+    return state
+
+
+def _plan_model(state: PlasmaState, grid: Grid, cfg: SimConfig, mpc: MPCConfig):
+    """Reduced planning model: (plan_state, plan_grid, plan_cfg)."""
+    plan_grid, plan_cfg = _reduced_model(grid, cfg, mpc, state.x.dtype)
+    return _reduce_state(state, cfg, mpc), plan_grid, plan_cfg
+
+
+def _plan_frac(cfg: SimConfig, mpc: MPCConfig) -> float:
+    """Actual planned-particle fraction n_eff/N under the stride arithmetic
+    of :func:`_reduce_state` (stride = N // plan_particles, n_eff =
+    ceil(N/stride)), not plan_particles/N; 1.0 when the stride is 1."""
+    n = cfg.n_particles
+    if mpc.plan_particles is None or mpc.plan_particles >= n:
+        return 1.0
+    stride = max(1, n // mpc.plan_particles)
+    n_eff = -(-n // stride)
+    return min(n_eff / n, 1.0)
+
+
+def _fidelity_ratio(x: torch.Tensor, cfg: SimConfig, ctrl: ControlConfig,
+                    mpc: MPCConfig) -> torch.Tensor:
+    """On-device coherent-vs-injected-noise ratio of subsampled planning:
+    the statistics of :func:`plan_fidelity_check` in torch ops, one O(N Km)
+    mode-sum pass over the full state, no host sync."""
+    n = cfg.n_particles
+    km = max(int(mpc.plan_modes), ctrl.max_mode)
+    k = (2.0 * math.pi / cfg.length) * torch.arange(1, km + 1, dtype=x.dtype, device=x.device)
+    t = (2.0 * math.pi / cfg.length) * x.reshape(-1)
+    c, s = _mode_sums(torch.cos(t), torch.sin(t), km)
+    modal = (cfg.n0**2 / n) * (c * c + s * s) / (k * k)
+    floor_full = cfg.n0**2 / (k * k)
+    frac = _plan_frac(cfg, mpc)
+    coherent = frac * torch.sum(torch.clamp(modal - floor_full, min=0.0))
+    injected = sum(
+        cfg.n0**2 * (1.0 - frac) / (2.0 * math.pi * m / cfg.length) ** 2
+        for m in range(1, km + 1)
+    )
+    return coherent / max(injected, 1e-30)
+
+
+def plan_fidelity_check(state: PlasmaState, cfg: SimConfig, ctrl: ControlConfig,
+                        mpc: MPCConfig) -> dict:
+    """Is subsampled planning (``mpc.plan_particles < N``) safe at this state?
+
+    Subsampling n of N particles injects unscreened sampling noise of
+    ``n0^2 (1 - n/N) / k_m^2`` per mode into the plan model; the full
+    state's coherent modal energy (its modal PE less its own Poisson floor
+    ``n0^2/k^2``) appears there attenuated by n/N. ``safe`` means that
+    coherent part is at least ``mpc.fidelity_guard_ratio`` times the injected
+    noise, the threshold of the per-solve guard. The JAX package's docstring
+    gives the physics and the measurements behind it. Host numpy, one pass
+    over the full state; returns {"coherent_pe", "injected_noise_pe",
+    "ratio", "safe"}.
+    """
+    n = cfg.n_particles
+    km = max(int(mpc.plan_modes), ctrl.max_mode)
+    k = (2.0 * np.pi / cfg.length) * np.arange(1, km + 1)
+    t = (2.0 * np.pi / cfg.length) * state.x.detach().reshape(-1).cpu().numpy()
+    c = np.stack([np.sum(np.cos(m * t)) for m in range(1, km + 1)])
+    s = np.stack([np.sum(np.sin(m * t)) for m in range(1, km + 1)])
+    modal = (cfg.n0**2 / n) * (c * c + s * s) / (k * k)
+    floor_full = cfg.n0**2 / (k * k)
+    frac = _plan_frac(cfg, mpc)
+    coherent = frac * float(np.sum(np.maximum(modal - floor_full, 0.0)))
+    injected = float(np.sum(cfg.n0**2 * (1.0 - frac) / (k * k)))
+    ratio = coherent / injected if injected > 0 else float("inf")
+    return {
+        "coherent_pe": coherent,
+        "injected_noise_pe": injected,
+        "ratio": ratio,
+        "safe": ratio >= mpc.fidelity_guard_ratio,
+    }
+
+
+_PLAN_GRIDS = {}
+_PLAN_ACTS = {}
+
+
+def _grid_cache(n_mesh: int, length: float, dtype, device):
+    key = (n_mesh, float(length), dtype, str(device))
+    if key not in _PLAN_GRIDS:
+        _PLAN_GRIDS[key] = make_grid(n_mesh, length, dtype=dtype, device=device)
+    return _PLAN_GRIDS[key]
+
+
+def _actuator_cache(length: float, n_mesh: int, max_mode: int, dtype, device):
+    key = (float(length), n_mesh, max_mode, dtype, str(device))
+    if key not in _PLAN_ACTS:
+        _PLAN_ACTS[key] = make_actuator(length, n_mesh, max_mode, dtype=dtype, device=device)
+    return _PLAN_ACTS[key]
 
 
 def _pe_factor(plan_cfg: SimConfig, mpc: MPCConfig) -> float:
@@ -79,6 +206,163 @@ def _pe_factor(plan_cfg: SimConfig, mpc: MPCConfig) -> float:
     if mpc.cost_pe_nref is None:
         return 1.0
     return float(mpc.cost_pe_nref) / float(plan_cfg.n_particles)
+
+
+def _reject_grid_pallas_kernel(plan_kernel: str) -> None:
+    """``plan_kernel="fused"`` names the spectral horizon kernel. The JAX
+    package refuses it for the grid plan model, and so does the port: there
+    ``"auto"`` and ``"xla"`` apply, and on CUDA tensors both run the grid
+    planner's own kernels."""
+    if plan_kernel in ("fused", "packed"):
+        raise ValueError(
+            f"plan_kernel={plan_kernel!r} does not apply to plan_model='grid': use "
+            "plan_kernel='auto' or 'xla' (on CUDA tensors the grid planner always runs "
+            "its fused kernels), or plan_model='spectral' with plan_kernel='fused'"
+        )
+
+
+def _kernel_cfg(cfg: SimConfig, x: torch.Tensor) -> SimConfig:
+    """On CUDA tensors the grid planner deposits and gathers through the CIC
+    kernels whatever ``deposit_method`` says; on CPU tensors as configured."""
+    return dataclasses.replace(cfg, deposit_method="pallas") if x.is_cuda else cfg
+
+
+def _step_and_pe(
+    state: PlasmaState,  # (K, N) candidate states
+    e_ext: torch.Tensor,  # (K, M) drive fields, held over the step
+    grid: Grid,
+    cfg: SimConfig,
+    exact: bool,
+    plan_integrator: str = "env",
+    plan_kernel: str = "auto",
+):
+    """One planning step of a candidate batch: returns (state, (K,) PE).
+
+    ``"leapfrog"``: position-Verlet drift-kick-drift, one deposit + solve +
+    gather per step; with ``exact=False`` the PE reuses the kick-stage field
+    instead of re-solving at the post-step positions. On CUDA tensors this
+    is one launch of the fused leapfrog kernel. ``"env"``: the environment's
+    own step (exact PE), or with ``exact=False`` and Yoshida-4 the split whose
+    PE reuses the last stage's field; on CUDA tensors its deposits and
+    gathers run on the CIC kernels."""
+    _reject_grid_pallas_kernel(plan_kernel)
+    dt = cfg.clamped_dt()
+    if plan_integrator == "leapfrog":
+        if state.x.is_cuda:
+            x, v, e_self = fused_leapfrog_step(
+                state.x, state.v, e_ext, grid.e_op.T, n_mesh=grid.n_mesh, length=cfg.length,
+                dt=dt, n0=cfg.n0, exact=exact, kind=cfg.interpol,
+            )
+            return PlasmaState(x, v), electric_energy(e_self, grid, cfg.n_particles)
+        kw = dict(kind=cfg.interpol, method=cfg.deposit_method)
+        x = state.x + 0.5 * dt * state.v
+        e_self = solve_e_mesh(deposit(x, grid, n0=cfg.n0, **kw), grid, cfg.n0)
+        v = state.v + dt * -gather(e_self + e_ext, x, grid, **kw)
+        x = torch.remainder(x + 0.5 * dt * v, cfg.length)
+        if exact:
+            e_self = solve_e_mesh(deposit(x, grid, n0=cfg.n0, **kw), grid, cfg.n0)
+        return PlasmaState(x, v), electric_energy(e_self, grid, cfg.n_particles)
+
+    cfg = _kernel_cfg(cfg, state.x)
+    if cfg.integrator != "yoshida4" or exact:
+        new = step(state, grid, cfg, e_ext)
+        pe, _ = _energies(new, grid, cfg)
+        return new, pe
+    kw = dict(kind=cfg.interpol, method=cfg.deposit_method)
+    cs, ds = yoshida4_coefficients()
+    x, v = state.x, state.v
+    x = x + cs[0] * dt * v
+    e_self = None
+    for c, d in zip(cs[1:], ds):
+        e_self = solve_e_mesh(deposit(x, grid, n0=cfg.n0, **kw), grid, cfg.n0)
+        v = v + d * dt * -gather(e_self + e_ext, x, grid, **kw)
+        x = x + c * dt * v
+    pe = electric_energy(e_self, grid, cfg.n_particles)
+    return PlasmaState(torch.remainder(x, cfg.length), v), pe
+
+
+def _horizon_cost_kdk(
+    state: PlasmaState,
+    coeff_seqs: torch.Tensor,  # (K, H, 2K)
+    grid: Grid,
+    cfg: SimConfig,
+    mpc: MPCConfig,
+    actuator: FourierActuator,
+) -> torch.Tensor:
+    """Velocity-Verlet (kick-drift-kick) candidate costs, (K,).
+
+    The two half-kicks that straddle each step boundary merge into one
+    gather of ``2 E_self + u_t + u_{t+1}`` at the post-drift positions, so a
+    step costs one deposit + solve + gather and its PE is exact (the JAX
+    package's docstring derives it). On CUDA tensors the whole K x H block is
+    one launch of the merged-kick horizon kernel. On CPU tensors it runs op
+    by op, the candidates as a batch dimension; ``deposit_method="dense"``
+    there shares one (K, N, M) weight tensor between deposit and gather, as
+    the JAX package does."""
+    dt = cfg.clamped_dt()
+    e_ext_seq = actuator.compute_e_packed(coeff_seqs)  # (K, H, M)
+    pe_f = _pe_factor(cfg, mpc)
+    if state.x.is_cuda:
+        half_e2dx = fused_packed_horizon(
+            state.x, state.v, e_ext_seq, grid.e_op.T, n_mesh=grid.n_mesh, length=cfg.length,
+            dt=dt, n0=cfg.n0, kind=cfg.interpol,
+        )  # (K, H) 0.5 sum(E_self^2) dx; electric_energy's N/L rescale below
+        pes = pe_f * (half_e2dx * (cfg.n_particles / cfg.length))
+    else:
+        # u_t + u_{t+1} at each boundary; the last is arbitrary (the final
+        # merged kick changes no PE entering the cost)
+        e_pair_seq = torch.cat([e_ext_seq[:, 1:], e_ext_seq[:, -1:]], dim=1) + e_ext_seq
+        norm = cfg.n0 * cfg.length / cfg.n_particles / grid.dx
+        kw = dict(kind=cfg.interpol, method=cfg.deposit_method)
+
+        def fields_and_kick(x, e_add):
+            """(E_self, scale -> -gather(scale E_self + e_add, x)), one weight
+            evaluation."""
+            if cfg.deposit_method == "dense":
+                w = shape_weights_dense(torch.remainder(x, cfg.length), grid, cfg.interpol)
+                e_self = solve_e_mesh(w.sum(-2) * norm, grid, cfg.n0)
+                return e_self, lambda scale: -(w @ (scale * e_self + e_add)[..., None])[..., 0]
+            e_self = solve_e_mesh(deposit(x, grid, n0=cfg.n0, **kw), grid, cfg.n0)
+            return e_self, lambda scale: -gather(scale * e_self + e_add, x, grid, **kw)
+
+        x = state.x.expand(coeff_seqs.shape[0], -1)
+        _, kick0 = fields_and_kick(x, e_ext_seq[:, 0])
+        vh = state.v + 0.5 * dt * kick0(1.0)
+        pes = []
+        for t in range(coeff_seqs.shape[1]):
+            x = torch.remainder(x + dt * vh, cfg.length)
+            e2, kick = fields_and_kick(x, e_pair_seq[:, t])
+            vh = vh + 0.5 * dt * kick(2.0)
+            pes.append(pe_f * electric_energy(e2, grid, cfg.n_particles))
+        pes = torch.stack(pes, dim=-1)
+    costs = mpc.w_field * pes + mpc.w_input * actuator.input_energy(coeff_seqs)
+    return _finite_or_huge(_add_terminal(costs.sum(-1), pes, mpc))
+
+
+def _horizon_cost_steps(
+    state: PlasmaState,
+    coeff_seqs: torch.Tensor,  # (K, H, 2K)
+    grid: Grid,
+    cfg: SimConfig,
+    mpc: MPCConfig,
+    actuator: FourierActuator,
+) -> torch.Tensor:
+    """Candidate costs of the grid model stepped by :func:`_step_and_pe`
+    (``plan_integrator="env"`` or ``"leapfrog"``): the JAX package's per-step
+    scan with the candidates as a batch dimension. (K,)."""
+    k, h, _ = coeff_seqs.shape
+    st = PlasmaState(state.x.expand(k, -1), state.v.expand(k, -1))
+    pe_f = _pe_factor(cfg, mpc)
+    costs, pes = [], []
+    for t in range(h):
+        u = coeff_seqs[:, t]
+        st, pe = _step_and_pe(st, actuator.compute_e_packed(u), grid, cfg, mpc.exact_cost_energy,
+                              mpc.plan_integrator, mpc.plan_kernel)
+        pe = pe_f * pe
+        costs.append(mpc.w_field * pe + mpc.w_input * actuator.input_energy(u))
+        pes.append(pe)
+    total = _add_terminal(torch.stack(costs, -1).sum(-1), torch.stack(pes, -1), mpc)
+    return _finite_or_huge(total)
 
 
 def _finite_or_huge(total: torch.Tensor) -> torch.Tensor:
@@ -225,11 +509,19 @@ def _horizon_cost_spectral(
 
 
 def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator):
-    """(K, H, 2K) candidates -> (K,) costs of the spectral plan model.
+    """(K, H, 2K) candidates -> (K,) costs under the plan model.
 
-    CUDA tensors always go through the kernel: no shape falls back to the
-    op-by-op scan on the card."""
+    ``state``, ``grid``, ``cfg`` and ``actuator`` are the (possibly reduced)
+    planning model. CUDA tensors always go through the kernels: the spectral
+    model through the spectral horizon kernel, the grid model through the
+    fused grid kernels (``"kdk"``, ``"leapfrog"``) or the CIC kernels
+    (``"env"``). No shape falls back to plain PyTorch on the card."""
     _check_supported(cfg, mpc)
+    if mpc.plan_model == "grid":
+        _reject_grid_pallas_kernel(mpc.plan_kernel)
+        if mpc.plan_integrator == "kdk":
+            return _horizon_cost_kdk(state, coeff_seqs, grid, cfg, mpc, actuator)
+        return _horizon_cost_steps(state, coeff_seqs, grid, cfg, mpc, actuator)
     ka = actuator.max_mode
     km = max(int(mpc.plan_modes), ka)
     if not state.x.is_cuda and mpc.plan_kernel != "fused":
@@ -267,6 +559,26 @@ def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator):
     return new_mean[0], new_mean, best
 
 
+def _apply_fidelity_guard(plan_out, full_x, full_cfg, ctrl, mpc):
+    """Gate an (action, new_mean, best) solve on the fidelity ratio.
+
+    A no-op at full fidelity (the stride keeps every particle) or with the
+    guard off. Otherwise the applied action and the warm-start mean are
+    zeroed whenever the coherent/injected ratio of the full state is below
+    ``mpc.fidelity_guard_ratio``: an unsafe solve's mean encodes the
+    cancellation of the subsample's noise phases and must not seed the next
+    solve. ``torch.where`` on the device, no host sync."""
+    if not (mpc.fidelity_guard and _plan_frac(full_cfg, mpc) < 1.0):
+        return plan_out
+    action, new_mean, best = plan_out
+    safe = _fidelity_ratio(full_x, full_cfg, ctrl, mpc) >= mpc.fidelity_guard_ratio
+    return (
+        torch.where(safe, action, torch.zeros_like(action)),
+        torch.where(safe, new_mean, torch.zeros_like(new_mean)),
+        best,
+    )
+
+
 def plan(
     state: PlasmaState,
     mean: torch.Tensor,  # (H, 2K) warm-started nominal sequence
@@ -281,8 +593,12 @@ def plan(
 ):
     """One MPC solve. Returns (first_action, new_mean, best_cost).
 
-    ``noise``: optional (K, H, 2K) unit-variance perturbations (antithetic
-    pairs included) in place of draws from ``generator``."""
+    ``state``, ``grid``, ``cfg`` and ``actuator`` are the full environment
+    model; the candidates are scored on the reduced plan model when
+    ``plan_particles`` / ``plan_mesh`` ask for it, and the fidelity guard
+    then gates the result. ``noise``: optional (K, H, 2K) unit-variance
+    perturbations (antithetic pairs included) in place of draws from
+    ``generator``."""
     _check_supported(cfg, mpc)
     if mean.shape[-1] != 2 * actuator.max_mode:
         raise ValueError(
@@ -295,7 +611,13 @@ def plan(
         if generator is None:
             raise ValueError("plan needs a torch.Generator or handed-in noise")
         noise = draw_noise(generator, mpc, h, d, mean.dtype, mean.device)
-    return _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator)
+    full_x, full_cfg = state.x, cfg
+    state, grid, cfg = _plan_model(state, grid, cfg, mpc)
+    if actuator.n_mesh != grid.n_mesh:
+        actuator = _actuator_cache(cfg.length, grid.n_mesh, actuator.max_mode, mean.dtype,
+                                   mean.device)
+    out = _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator)
+    return _apply_fidelity_guard(out, full_x, full_cfg, ctrl, mpc)
 
 
 def mpc_rollout(

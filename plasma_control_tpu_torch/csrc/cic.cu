@@ -23,42 +23,14 @@
 
 #include <cuda_runtime.h>
 
+#include "shape.cuh"
+
 namespace {
 
+using pct::shape_weight;
+using pct::wrap_cell;
+
 constexpr int kThreads = 256;
-
-// Shape-function weight of a cell-unit offset d; the formulas of
-// shape_weights_from_offset in ops/deposit.py (kind 0 cic, 1 tsc, 2 tsc_standard).
-__device__ __forceinline__ float shape_weight(float d, int kind) {
-  if (kind == 0) return fmaxf(0.0f, 1.0f - fabsf(d));
-  if (kind == 1) {
-    if (d >= 1.0f && d < 2.0f) {
-      const float a = 2.5f - d;
-      return 0.5f * (a * a);
-    }
-    if (d >= 0.0f && d < 1.0f) {
-      const float a = d - 1.0f;
-      return 0.75f - a * a;
-    }
-    if (d >= -1.0f && d < 0.0f) {
-      const float a = d + 0.5f;
-      return 0.5f * (a * a);
-    }
-    return 0.0f;
-  }
-  const float a = fabsf(d);
-  if (a <= 0.5f) return 0.75f - a * a;
-  if (a <= 1.5f) {
-    const float b = 1.5f - a;
-    return 0.5f * (b * b);
-  }
-  return 0.0f;
-}
-
-__device__ __forceinline__ int wrap_cell(int j, int m) {
-  const int r = j % m;
-  return r < 0 ? r + m : r;
-}
 
 __global__ void __launch_bounds__(kThreads)
 deposit_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int m,

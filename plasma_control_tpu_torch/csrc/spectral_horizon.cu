@@ -30,6 +30,15 @@
 // The prologue's mode sums at x0 are the same for every candidate; each CTA
 // recomputes them (one extra pass of H+1).
 //
+// Large N: when the state does not fit one CTA's shared memory (above 14448
+// particles for trig, 19264 for rot), the same body keeps it in a global
+// scratch of (3 or 4) x N floats per candidate that the wrapper allocates
+// (template flag GLOBAL). Each thread still touches only its own particles,
+// so the scratch needs no extra barrier; it is read and written once per pass
+// and mostly misses L2 at config-4's N = 100 000 (460-615 MB for K = 384).
+// One CTA per candidate stays: a split of a candidate over a thread-block
+// cluster with DSMEM reductions is later speed work.
+//
 // Semantics follow the TPU kernel term by term: the prologue is an un-merged
 // half kick with g_m and u_0; every step uses 2*g_m and pair_t = u_t + u_{t+1};
 // PE comes from the post-drift, pre-kick mode sums. Constants arrive in fp32,
@@ -146,15 +155,17 @@ __device__ __forceinline__ void reduce_modes(float (&cs)[kMaxModes], float (&ss)
   __syncthreads();
 }
 
-template <bool ROT>
+template <bool ROT, bool GLOBAL>
 __global__ void __launch_bounds__(kThreads)
 spectral_horizon_kernel(const float* __restrict__ x0, const float* __restrict__ v0,
                         const float* __restrict__ u0c, const float* __restrict__ u0s,
                         const float* __restrict__ pair_c, const float* __restrict__ pair_s,
-                        float* __restrict__ pe, const SpectralParams p) {
+                        float* __restrict__ pe, float* __restrict__ scratch,
+                        const SpectralParams p) {
   __shared__ Reduction r;
-  extern __shared__ float state[];
+  extern __shared__ float smem_state[];
   const int n = p.n, km = p.km, k = blockIdx.x;
+  float* state = GLOBAL ? scratch + (size_t)k * (ROT ? 3 : 4) * n : smem_state;
   float* c1 = state;          // cos(k1 x)
   float* s1 = state + n;      // sin(k1 x)
   float* vh = state + 2 * n;  // staggered velocity
@@ -179,7 +190,7 @@ spectral_horizon_kernel(const float* __restrict__ x0, const float* __restrict__ 
   for (int q = threadIdx.x; q < n; q += kThreads)
     vh[q] = vh[q] + p.half_dt * (-eval_harmonics(c1[q], s1[q], km, r.coef));
 
-  // ---- H merged-kick steps, state resident in shared memory ----------------
+  // ---- H merged-kick steps, state resident for the whole horizon ----------
   for (int t = 0; t < p.h; ++t) {
 #pragma unroll
     for (int m = 0; m < kMaxModes; ++m) cs[m] = ss[m] = 0.0f;
@@ -219,16 +230,16 @@ spectral_horizon_kernel(const float* __restrict__ x0, const float* __restrict__ 
   }
 }
 
-template <bool ROT>
+template <bool ROT, bool GLOBAL>
 int launch(const float* x0, const float* v0, const float* u0c, const float* u0s,
-           const float* pair_c, const float* pair_s, float* pe, const SpectralParams& p,
-           cudaStream_t stream) {
-  const size_t smem = (ROT ? 3 : 4) * sizeof(float) * (size_t)p.n;
-  cudaError_t err = cudaFuncSetAttribute(spectral_horizon_kernel<ROT>,
+           const float* pair_c, const float* pair_s, float* pe, float* scratch,
+           const SpectralParams& p, cudaStream_t stream) {
+  const size_t smem = GLOBAL ? 0 : (ROT ? 3 : 4) * sizeof(float) * (size_t)p.n;
+  cudaError_t err = cudaFuncSetAttribute(spectral_horizon_kernel<ROT, GLOBAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  spectral_horizon_kernel<ROT><<<p.k, kThreads, smem, stream>>>(x0, v0, u0c, u0s, pair_c,
-                                                                pair_s, pe, p);
+  spectral_horizon_kernel<ROT, GLOBAL><<<p.k, kThreads, smem, stream>>>(
+      x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -237,15 +248,20 @@ int launch(const float* x0, const float* v0, const float* u0c, const float* u0s,
 extern "C" {
 
 // x0, v0: (n,); u0c, u0s: (k, km); pair_c, pair_s: (k, h*km); pe: (k, h).
-// Needs (3 + !rot) * 4 * n bytes of shared memory and km <= 16; a launch
-// beyond the card's shared memory is refused and reported.
+// scratch: null keeps each candidate's state in (3 + !rot) * 4 * n bytes of
+// shared memory (a launch beyond the card's shared memory is refused and
+// reported); otherwise a (k, (3 + !rot) * n) float buffer that holds it in
+// global memory. km <= 16.
 int pct_spectral_horizon(const float* x0, const float* v0, const float* u0c, const float* u0s,
-                         const float* pair_c, const float* pair_s, float* pe,
+                         const float* pair_c, const float* pair_s, float* pe, float* scratch,
                          SpectralParams p, int rot, cudaStream_t stream) {
   if (p.km < 1 || p.km > kMaxModes || p.k < 1 || p.h < 1 || p.n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return rot ? launch<true>(x0, v0, u0c, u0s, pair_c, pair_s, pe, p, stream)
-             : launch<false>(x0, v0, u0c, u0s, pair_c, pair_s, pe, p, stream);
+  if (scratch)
+    return rot ? launch<true, true>(x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p, stream)
+               : launch<false, true>(x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p, stream);
+  return rot ? launch<true, false>(x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p, stream)
+             : launch<false, false>(x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p, stream);
 }
 
 }  // extern "C"

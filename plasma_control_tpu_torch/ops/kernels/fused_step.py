@@ -1,0 +1,214 @@
+"""The grid planner's fused kernels: the CUDA kernels of ``csrc/fused_step.cu``
+and their plain PyTorch versions.
+
+Replaces the Pallas TPU kernels of ``experiments/pallas_fused_step.py``:
+
+* :func:`fused_leapfrog_step` (``_fused_impl``): one drift-kick-drift grid-PIC
+  planning step for B rows, with the exact post-step field or the
+  kick-stage field;
+* :func:`fused_kdk_horizon`: K candidates x H explicit KDK steps from one
+  shared state, per-step ``0.5 * sum(E_self^2) * dx``;
+* :func:`fused_packed_horizon`: the same contract with merged half-kicks
+  (the staggered KDK of ``control/mpc.py::_horizon_cost_kdk``).
+
+The horizon kernels return the field energy before ``electric_energy``'s N/L
+rescale, as the TPU kernels do. Unlike the TPU kernels (CIC only) every
+kernel takes the three interpolation kinds of the grid planner. The design
+note at the top of the CUDA source says what bounds the kernels on the H100
+and where the particle state lives.
+
+A wrapper runs the plain version for CPU tensors and the kernel for CUDA
+tensors (float32); any other device raises. Each kernel launch adds one to
+the wrapper's ``launches`` count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .cic import _KIND_ID, _check_device, deposit_cic_plain, gather_cic_plain
+
+__all__ = [
+    "fused_leapfrog_step",
+    "fused_kdk_horizon",
+    "fused_packed_horizon",
+    "fused_leapfrog_step_plain",
+    "fused_kdk_horizon_plain",
+    "fused_packed_horizon_plain",
+]
+
+def _density(x, n_mesh, length, kind, n0):
+    """Normalised density n0 L / N / dx * sum of shape weights: (..., M)."""
+    n = x.shape[-1]
+    return deposit_cic_plain(x, n_mesh, length, kind) * (n0 * length / n / (length / n_mesh))
+
+
+def _solve(x, e_op_t, n_mesh, length, kind, n0):
+    """E_self at positions x: (n - n0) @ e_op_t."""
+    return (_density(x, n_mesh, length, kind, n0) - n0) @ e_op_t
+
+
+def _half_field_energy(e, length, n_mesh):
+    return 0.5 * (length / n_mesh) * torch.sum(e * e, dim=-1)
+
+
+def fused_leapfrog_step_plain(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0=1.0, exact=True,
+                              kind="cic"):
+    """Plain version: x, v (..., N); e_ext (..., M) or (M,) -> (x', v', E_post)."""
+    xh = torch.remainder(x + (0.5 * dt) * v, length)
+    e_self = _solve(xh, e_op_t, n_mesh, length, kind, n0)
+    vn = v + dt * (-gather_cic_plain(e_self + e_ext, xh, n_mesh, length, kind))
+    xn = torch.remainder(xh + (0.5 * dt) * vn, length)
+    eo = _solve(xn, e_op_t, n_mesh, length, kind, n0) if exact else e_self
+    return xn, vn, eo
+
+
+def fused_kdk_horizon_plain(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0=1.0, kind="cic"):
+    """Plain version of the explicit KDK horizon: x, v (N,); u_mesh_seq
+    (K, H, M) -> (K, H) per-step 0.5 sum(E_self^2) dx."""
+    k, h, _ = u_mesh_seq.shape
+    x, v = x.expand(k, -1), v.expand(k, -1)
+    e = _solve(x, e_op_t, n_mesh, length, kind, n0)
+    pes = []
+    for t in range(h):
+        u = u_mesh_seq[:, t]
+        vh = v + (0.5 * dt) * (-gather_cic_plain(e + u, x, n_mesh, length, kind))
+        x = torch.remainder(x + dt * vh, length)
+        e = _solve(x, e_op_t, n_mesh, length, kind, n0)
+        v = vh + (0.5 * dt) * (-gather_cic_plain(e + u, x, n_mesh, length, kind))
+        pes.append(_half_field_energy(e, length, n_mesh))
+    return torch.stack(pes, dim=-1)
+
+
+def fused_packed_horizon_plain(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0=1.0,
+                               kind="cic"):
+    """Plain version of the merged-half-kick horizon: same contract as
+    :func:`fused_kdk_horizon_plain`."""
+    k, h, _ = u_mesh_seq.shape
+    x = x.expand(k, -1)
+    e = _solve(x, e_op_t, n_mesh, length, kind, n0)
+    vh = v + (0.5 * dt) * (-gather_cic_plain(e + u_mesh_seq[:, 0], x, n_mesh, length, kind))
+    pes = []
+    for t in range(h):
+        x = torch.remainder(x + dt * vh, length)
+        e = _solve(x, e_op_t, n_mesh, length, kind, n0)
+        pes.append(_half_field_energy(e, length, n_mesh))
+        if t + 1 < h:
+            f = 2.0 * e + u_mesh_seq[:, t] + u_mesh_seq[:, t + 1]
+            vh = vh + (0.5 * dt) * (-gather_cic_plain(f, x, n_mesh, length, kind))
+    return torch.stack(pes, dim=-1)
+
+
+def _params(n, m, h, kind, length, dt, n0):
+    dx = length / m
+    return _build.GridParams(
+        n=n, m=m, h=h, kind=_KIND_ID[kind], dt=dt, half_dt=0.5 * dt, length=length,
+        inv_dx=1.0 / dx, norm=n0 * length / n / dx, n0=n0, half_dx=0.5 * dx,
+    )
+
+
+def _layout(n: int, m: int, what: str) -> tuple[bool, bool]:
+    """(state in shared memory, e_op_t in shared memory). The five mesh arrays
+    always live there; the particle state (8 B per particle) comes next, then
+    the (M, M) operator."""
+    fields = 4 * 5 * m
+    if fields > _build.SHARED_BYTES:
+        raise ValueError(f"{what}: mesh of {m} cells beyond the kernel's shared memory")
+    state = fields + 8 * n <= _build.SHARED_BYTES
+    eop = fields + (8 * n if state else 0) + 4 * m * m <= _build.SHARED_BYTES
+    return state, eop
+
+
+def _f32(what, *tensors):
+    if any(t.dtype != torch.float32 or t.device != tensors[0].device for t in tensors):
+        raise TypeError(f"{what}: the CUDA kernel takes float32 tensors on one device")
+    return [t.contiguous() for t in tensors]
+
+
+def fused_leapfrog_step(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0=1.0, exact=True,
+                        kind="cic"):
+    """One leapfrog planning step: (x', v', E_post).
+
+    x, v: (..., N); e_ext: (..., M), or (M,) shared by every row; e_op_t:
+    (M, M) = ``grid.e_op.T``. ``E_post`` is the self-consistent field at the
+    post-step positions when ``exact``, else the kick-stage field.
+    """
+    if not _check_device(x, "fused_leapfrog_step"):
+        return fused_leapfrog_step_plain(x, v, e_ext, e_op_t, n_mesh=n_mesh, length=length,
+                                         dt=dt, n0=n0, exact=exact, kind=kind)
+    n = x.shape[-1]
+    if v.shape != x.shape or e_op_t.shape != (n_mesh, n_mesh) or e_ext.shape[-1] != n_mesh:
+        raise ValueError("fused_leapfrog_step: x, v (..., N), e_ext (..., M), e_op_t (M, M)")
+    lead = x.shape[:-1]
+    xr, vr, er, eop = _f32("fused_leapfrog_step", x.reshape(-1, n), v.reshape(-1, n),
+                           e_ext.expand(lead + (n_mesh,)).reshape(-1, n_mesh), e_op_t)
+    b = xr.shape[0]
+    xo, vo = torch.empty_like(xr), torch.empty_like(vr)
+    eo = torch.empty((b, n_mesh), dtype=torch.float32, device=x.device)
+    state_smem, eop_smem = _layout(n, n_mesh, "fused_leapfrog_step")
+    with torch.cuda.device(x.device):
+        err = _build.library().pct_fused_leapfrog_step(
+            xr.data_ptr(), vr.data_ptr(), er.data_ptr(), eop.data_ptr(),
+            xo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b,
+            _params(n, n_mesh, 1, kind, length, dt, n0), int(exact), int(eop_smem),
+            int(state_smem), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "fused_leapfrog_step")
+    fused_leapfrog_step.launches += 1
+    return xo.reshape(x.shape), vo.reshape(x.shape), eo.reshape(lead + (n_mesh,))
+
+
+fused_leapfrog_step.launches = 0
+
+
+def _horizon_cuda(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0, kind, merged, what):
+    (n,) = x.shape
+    k, h, m = u_mesh_seq.shape
+    if v.shape != x.shape or m != n_mesh or e_op_t.shape != (m, m):
+        raise ValueError(f"{what}: x, v (N,), u_mesh_seq (K, H, M), e_op_t (M, M)")
+    xc, vc, uc, eop = _f32(what, x, v, u_mesh_seq, e_op_t)
+    state_smem, eop_smem = _layout(n, m, what)
+    scratch = None if state_smem else torch.empty((k, 2 * n), dtype=torch.float32,
+                                                  device=x.device)
+    pe = torch.empty((k, h), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().pct_grid_horizon(
+            xc.data_ptr(), vc.data_ptr(), uc.data_ptr(), eop.data_ptr(), pe.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), k,
+            _params(n, m, h, kind, length, dt, n0), int(merged), int(eop_smem),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, what)
+    return pe
+
+
+def fused_kdk_horizon(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0=1.0, kind="cic"):
+    """K candidate H-step explicit KDK rollouts from the shared state x, v
+    (N,) under drive fields u_mesh_seq (K, H, M): (K, H) per-step
+    ``0.5 * sum(E_self^2) * dx`` (callers apply the N/L rescale)."""
+    if not _check_device(x, "fused_kdk_horizon"):
+        return fused_kdk_horizon_plain(x, v, u_mesh_seq, e_op_t, n_mesh=n_mesh, length=length,
+                                       dt=dt, n0=n0, kind=kind)
+    pe = _horizon_cuda(x, v, u_mesh_seq, e_op_t, n_mesh=n_mesh, length=length, dt=dt, n0=n0,
+                       kind=kind, merged=False, what="fused_kdk_horizon")
+    fused_kdk_horizon.launches += 1
+    return pe
+
+
+fused_kdk_horizon.launches = 0
+
+
+def fused_packed_horizon(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0=1.0, kind="cic"):
+    """Staggered-KDK horizon with merged half-kicks; the contract of
+    :func:`fused_kdk_horizon`."""
+    if not _check_device(x, "fused_packed_horizon"):
+        return fused_packed_horizon_plain(x, v, u_mesh_seq, e_op_t, n_mesh=n_mesh,
+                                          length=length, dt=dt, n0=n0, kind=kind)
+    pe = _horizon_cuda(x, v, u_mesh_seq, e_op_t, n_mesh=n_mesh, length=length, dt=dt, n0=n0,
+                       kind=kind, merged=True, what="fused_packed_horizon")
+    fused_packed_horizon.launches += 1
+    return pe
+
+
+fused_packed_horizon.launches = 0

@@ -14,6 +14,10 @@ order of operations), so on CPU tensors it stands in for the kernel in the
 parity tests. Drift variants: ``rot`` (small-angle rotation of the carried
 base-harmonic phasor) and ``trig`` (wrap, then cos/sin). The twin-corrected
 variant of the TPU kernel is not ported yet.
+
+Every N runs on the card: where a candidate's state does not fit one CTA's
+shared memory, the wrapper allocates a global scratch for it and the same
+kernel body keeps the state there.
 """
 
 from __future__ import annotations
@@ -27,13 +31,13 @@ __all__ = [
     "spectral_horizon",
     "spectral_horizon_plain",
     "spectral_horizon_supported",
+    "state_in_shared",
     "use_rot",
-    "MAX_PARTICLES",
 ]
 
-# 16 B of shared-memory state per particle (trig drift) within the 227 KB a
-# CTA may use on Hopper, less the kernel's 1.25 KB of reduction scratch
-MAX_PARTICLES = 14336
+# shared memory left for the particle state beside the kernel's 1.25 KB of
+# reduction scratch
+_STATE_BYTES = _build.SHARED_BYTES - 1280
 _V_SAFE = 25.0  # velocity bound of the rot drift's static angle gate
 
 
@@ -48,9 +52,21 @@ def use_rot(dt: float, length: float, mode: str | None = None) -> bool:
 
 
 def spectral_horizon_supported(n_particles: int, km: int) -> bool:
-    """True if the kernel holds N particles in one CTA's shared memory and Km
-    modes in its fixed-size mode arrays."""
-    return 1 <= n_particles <= MAX_PARTICLES and 1 <= km <= _build.MAX_MODES
+    """True if the kernel takes Km modes in its fixed-size mode arrays; any
+    N >= 1 runs (:func:`state_in_shared` says where its state lives)."""
+    return n_particles >= 1 and 1 <= km <= _build.MAX_MODES
+
+
+def _state_floats(rot: bool) -> int:
+    """Floats of state per particle: c1, s1, vh, plus x for the trig drift."""
+    return 3 if rot else 4
+
+
+def state_in_shared(n_particles: int, rot: bool) -> bool:
+    """True if one candidate's particle state fits one CTA's shared memory
+    (N <= 19264 for rot, 14448 for trig); otherwise it lives in a global
+    scratch."""
+    return 4 * _state_floats(rot) * n_particles <= _STATE_BYTES
 
 
 def _constants(km: int, length: float, n0: float, n_particles: int):
@@ -136,8 +152,8 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     k_cand, horizon, km = u_c.shape
     if not spectral_horizon_supported(n_particles, km):
         raise ValueError(
-            f"spectral_horizon: N={n_particles} particles and Km={km} modes exceed the "
-            f"kernel's limits (N <= {MAX_PARTICLES}, Km <= {_build.MAX_MODES})"
+            f"spectral_horizon: Km={km} modes (N={n_particles}) beyond the kernel's "
+            f"limit Km <= {_build.MAX_MODES}"
         )
     tensors = (x0, v0, u_c, u_s)
     if any(t.dtype != torch.float32 or t.device != x0.device for t in tensors):
@@ -158,10 +174,15 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     pair_c = _pairs(u_c).contiguous()
     pair_s = _pairs(u_s).contiguous()
     pe = torch.empty((k_cand, horizon), dtype=torch.float32, device=x0.device)
+    scratch = None
+    if not state_in_shared(n_particles, rot):
+        scratch = torch.empty((k_cand, _state_floats(rot) * n_particles),
+                              dtype=torch.float32, device=x0.device)
     with torch.cuda.device(x0.device):
         err = _build.library().pct_spectral_horizon(
             x0c.data_ptr(), v0c.data_ptr(), u0c.data_ptr(), u0s.data_ptr(),
-            pair_c.data_ptr(), pair_s.data_ptr(), pe.data_ptr(), params, int(rot),
+            pair_c.data_ptr(), pair_s.data_ptr(), pe.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), params, int(rot),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "spectral_horizon")

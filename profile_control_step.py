@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of one control step goes on one NVIDIA GPU.
 
-    python3 profile_control_step.py [--steps 50] [--trace PATH]
+    python3 profile_control_step.py [--slice spectral|grid] [--steps 50] [--trace PATH]
 
-Runs the control step of ``chip_smoke.py``'s slice (one MPPI solve, one
+Runs the control step of one of ``chip_smoke.py``'s slices, the spectral
+slice or the grid-planner slice (one MPPI solve, one
 Yoshida-4 environment step, the energies, the nominal shift: the body of
 ``mpc_rollout``) with ``record_function`` ranges around plan / env step /
 energies, after 20 warm-up steps, and prints:
@@ -37,7 +38,7 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import _setup
+from chip_smoke import GRID_MPC, MPC, _setup
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 RANGES = ("plan", "env_step", "energies")
@@ -90,6 +91,8 @@ def _group(events: list) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--slice", choices=("spectral", "grid"), default="spectral",
+                    help="chip_smoke.py's spectral slice or its grid-planner slice")
     ap.add_argument("--steps", type=int, default=50, help="control steps in the traced window")
     ap.add_argument("--trace", default="chiprun_out/control_step_trace.json",
                     help="where to write the Chrome trace")
@@ -107,9 +110,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(f"slice: {args.slice}", flush=True)
 
     dev = torch.device("cuda")
-    cfg, ctrl, mpc, grid, act = _setup(torch, dev)
+    cfg, ctrl, mpc, grid, act = _setup(torch, dev, mpc=GRID_MPC if args.slice == "grid" else MPC)
     state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     mean = torch.zeros((mpc.horizon, 2 * ctrl.max_mode), device=dev)

@@ -148,9 +148,7 @@ def test_generator_draws_are_seeded():
 
 @pytest.mark.parametrize("kw", [
     dict(algo="cem"),
-    dict(plan_model="grid"),
-    dict(plan_particles=100),
-    dict(plan_mesh=16),
+    dict(plan_correction="twin", plan_particles=100),
     dict(n_grad_iters=2),
     dict(plan_chunk=4),
     dict(smooth_noise=0.5),

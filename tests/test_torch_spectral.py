@@ -21,7 +21,7 @@ from plasma_control_tpu_torch.control.mpc import candidate_costs
 from plasma_control_tpu_torch.interop import state_from_numpy
 from plasma_control_tpu_torch.ops.grid import make_grid
 from plasma_control_tpu_torch.ops.kernels.spectral_horizon import (
-    spectral_horizon, spectral_horizon_supported, use_rot,
+    spectral_horizon, spectral_horizon_supported, state_in_shared, use_rot,
 )
 
 torch.set_num_threads(1)
@@ -59,8 +59,10 @@ def test_drift_gate_and_limits():
     assert not use_rot(0.5, 10.0) and use_rot(0.5, 10.0, "rot")
     assert not use_rot(0.1, 50.0, "trig")
     assert spectral_horizon_supported(5000, 8)
-    assert not spectral_horizon_supported(100_000, 8)
+    assert spectral_horizon_supported(100_000, 8)  # any N: large N keeps its state in global memory
     assert not spectral_horizon_supported(5000, 17)
+    assert state_in_shared(14448, rot=False) and not state_in_shared(14449, rot=False)
+    assert state_in_shared(19264, rot=True) and not state_in_shared(19265, rot=True)
 
 
 def _setup(n, ka, **mpc_kw):
@@ -128,3 +130,19 @@ def test_kernel_and_op_paths_agree_on_trig():
     ops = candidate_costs(tst, cand, tg, tcfg, MPCConfig(plan_kernel="xla", **kw), tact)
     np.testing.assert_allclose(fused.numpy(), ops.numpy(), rtol=2e-4, atol=1e-5)
     assert torch.equal(torch.argsort(fused), torch.argsort(ops))
+
+
+def test_plain_horizon_above_the_old_particle_cap_matches_jax_xla():
+    """N=15000, above the 14336 particles the kernel once held: the port's
+    plain spectral horizon (plan_kernel="fused", trig drift; on the card the
+    kernel with its state in global memory) against the JAX package's XLA
+    scan, K=4, H=3: rtol 2e-4, atol 1e-5, the bar of the cost tests above."""
+    n, ka = 15_000, 2
+    (jst, jg, jcfg, jact), (tst, tg, tcfg, tact) = _setup(n, ka)
+    cand = (0.3 * np.random.default_rng(9).standard_normal((4, 3, 2 * ka))).astype(np.float32)
+    kw = dict(horizon=3, n_candidates=4, plan_modes=4, w_terminal=2.0)
+    ref = jcandidate_costs(jst, jnp.asarray(cand), jg, jcfg, JMPCConfig(plan_kernel="xla", **kw),
+                           jact)
+    got = candidate_costs(tst, torch.tensor(cand), tg, tcfg,
+                          MPCConfig(plan_kernel="fused", spectral_drift="trig", **kw), tact)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=1e-5)
