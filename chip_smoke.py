@@ -17,7 +17,11 @@ any failure exits non-zero:
    events, median of 30 calls): the spectral slice's kernels 1-3; the grid
    planner's kernels 4-6 at its plan model (K=512, H=10, N=1250, M=64),
    kernel 5 against kernel 6 (one contract); kernel 1 with its particle
-   state in global memory (N=20000, K=64, H=10, Km=16);
+   state in global memory (N=20000, K=64, H=10, Km=16); kernel 1's
+   twin-corrected variant at the twin slice's plan model (K=1024, H=10,
+   Km=16, N=10000) with both drifts, in global memory (N=20000, K=64), and
+   the trig drift's zero-drive identity against the twin trajectory; the
+   gather beside ``grid_sample``, the one PyTorch call that computes it;
 4. run the control loops, each with every launch count set to 0 just before
    it and read just after:
    a. the spectral slice, the repo's headline MPC configuration
@@ -39,16 +43,30 @@ any failure exits non-zero:
       (``bench_scaling.py:222-227,276-287``: two-stream, N=100000, M=256,
       max_mode 8, K=384, H=10, Km=16), kernel 1 with its state in global
       memory; then kernel 1 against its plain version at those shapes;
+   f. the twin slice, config-4's twin-corrected subsampled controller
+      (``bench_scaling.py:222-227,268-269``: the config-4 environment,
+      K=1024, H=10, a stride-10 plan subsample of 10000 particles, 64 plan
+      cells, Km=16, ``plan_correction="twin"``, fidelity guard on), all 500
+      control steps: one launch of kernel 1's corrected variant per solve;
+      plus the uncontrolled rollout from the same seeded state;
+   g. the port's entry point, ``plasma_control_tpu_torch.run_mpc.main`` with
+      the twin slice's flags, ``--t_max 5`` and the CLI's dense deposit: 50
+      control steps, the replay, the cost traces and the saved run;
 5. check one candidate block and a three-step closed loop on the card
    against the same computation on the CPU, where every wrapper runs its
    plain version: the spectral slice from its initial state; the grid slice
    from the state its 500-step loop ended in, and from a coherent
    two-stream state at which the fidelity guard must pass every solve, so
-   that the loop applies a drive on both sides.
+   that the loop applies a drive on both sides; the twin slice with one
+   corrected candidate block of 128 and a three-step loop at K=64 with the
+   guard off (``experiments/config4_frontier.py:92-95``), so that the
+   corrected costs drive on both sides.
 
 The last two lines of standard output are one JSON object per kernel
-(launches in its path's run, error against the plain version, times) and
-``{"ok": true, "device": {...}}``.
+(launches in its path's run, error against the plain version, times, the
+card's least time for the same work and what sets it, the library call's
+time where one computes the same function) and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -78,6 +96,21 @@ CFG4_SIM = dict(simcase="two-stream", n_particles=100_000, n_mesh=256, dt=0.1,
                 deposit_method="pallas")
 CFG4_MAX_MODE = 8
 CFG4_MPC = dict(horizon=10, n_candidates=384)
+# config-4's twin-corrected subsampled controller, the round-5 quality point
+# (bench_scaling.py:222-227,268-269), on the config-4 environment above;
+# MPCConfig's defaults otherwise (Km=16, auto = rot drift, knot-3 antithetic
+# MPPI with the feedback seed, cost_pe_nref 5000, fidelity guard on). Its
+# plan model: stride 100000 // 10000 = 10, 10000 particles, 64 cells
+TWIN_MPC = dict(horizon=10, n_candidates=1024, plan_particles=10000, plan_mesh=64,
+                plan_correction="twin")
+TWIN_FLAGS = ["--simcase", "two-stream", "--num_particle", "100000", "--num_mesh", "256",
+              "--max_mode", "8", "--n_candidates", "1024", "--plan_particles", "10000",
+              "--plan_mesh", "64", "--plan_correction", "twin"]
+ENTRY_STEPS = 50  # --t_max 5 at dt 0.1
+
+# published peaks of one H100 SXM at 700 W: fp32 outside the tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -105,6 +138,61 @@ def time_ms(torch, fn, reps: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the fp32 peak and the bytes (each input read once, each output
+    written once) over the memory rate, and which of the two sets it."""
+    t_ops, t_bytes = 1e3 * ops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=nbytes)
+
+
+# Operations per particle, counted from the CUDA sources for the "cic" kind:
+# an FMA is 2, sincosf and fmodf 2 each, a shared-memory atomic add 1.
+TAPS_OPS = 13  # shape.cuh taps(): pos, then 4 x (offset, |d|, max)
+DEPOSIT_OPS = TAPS_OPS + 4
+GATHER_OPS = TAPS_OPS + 8  # taps plus 4 FMAs
+
+
+def spectral_ops(k: int, h: int, n: int, km: int, rot: bool) -> float:
+    """Operations that one spectral horizon needs (the function of
+    csrc/spectral_horizon.cu, not its schedule): per candidate, particle and
+    step the harmonic recurrence once (4 Km - 3), the mode sums (2 Km), the
+    field evaluation (4 Km) and the kick (2), plus the drift: 17 for rot (two
+    Horner polynomials, one rotation), 8 for trig (wrap, sincosf); per
+    candidate and particle the prologue's field and half kick (4 Km + 2).
+    The prologue's phasors and mode sums at the shared x0 are needed once,
+    not per candidate: N (6 Km - 1). The kernel reruns the recurrence in its
+    field pass (14 Km - 4 per particle-step as written) and redoes the
+    prologue's sums in every CTA; that is its overhead, not part of the
+    bound. Block reductions (2 Km values per step and CTA) are left out."""
+    step = 10 * km - 1 + (17 if rot else 8)
+    return k * n * (h * step + 4 * km + 2) + n * (6 * km - 1)
+
+
+def spectral_bytes(k: int, h: int, n: int, km: int, twin: bool) -> float:
+    """x0, v0 and u_c, u_s (K, H, Km) in, the (H, Km) targets in for the
+    corrected variant, (K, H) energies out."""
+    return 4 * (2 * n + 2 * k * h * km + (2 * h * km if twin else 0) + k * h)
+
+
+def solve_ops(m: int) -> float:
+    """One Poisson solve (hist * norm - n0) @ e_op_t: the affine once per
+    cell, then the M x M product. The kernels of csrc/fused_step.cu redo
+    the affine for every output column (4 M^2 as written): their overhead."""
+    return 2 * m * m + 2 * m
+
+
+def grid_horizon_ops(k: int, h: int, n: int, m: int, merged: bool) -> float:
+    """Kernels 5-6 (csrc/fused_step.cu): the prologue's deposit and solve at
+    the shared x0 once (each CTA redoes them), the drive added per
+    candidate; per step and particle taps, one (merged) or two gathers and
+    kicks, drift, wrap and a deposit; per step and candidate one solve and
+    the drive fields and energy (4 M)."""
+    per_particle = TAPS_OPS + (8 + 3 if merged else 16 + 6) + 4 + DEPOSIT_OPS
+    return DEPOSIT_OPS * n + solve_ops(m) + k * (m + h * (per_particle * n + solve_ops(m) + 4 * m))
 
 
 def find_card(torch) -> str:
@@ -177,6 +265,29 @@ def check_kernels(torch, rows: dict) -> None:
         ms=time_ms(torch, lambda: cic.gather_cic(e1, x1, m, length)),
         plain_ms=time_ms(torch, lambda: cic.gather_cic_plain(e1, x1, m, length)),
     )
+    rows["deposit_cic"].update(library_ms=None, **bound(DEPOSIT_OPS * n + m, 4 * (n + m)))
+    rows["gather_cic"].update(**bound(GATHER_OPS * n, 4 * (m + 2 * n)))
+
+    # the library's periodic linear interpolation: grid_sample over the mesh
+    # padded circularly by one cell (align_corners=True puts -1 on cell 0
+    # and +1 on cell M, so x maps to 2 x / L - 1), the same function as the
+    # "cic" gather; the padding and the grid are its inputs, not timed. The
+    # normalised coordinate rounds to ~6e-8, which grid_sample scales by M:
+    # 1.5e-5 of a cell at M=250, times field differences of a few units, so
+    # the two agree to atol 1e-4
+    import torch.nn.functional as F
+
+    e_pad = torch.cat([e1, e1[:, :1]], dim=1)[:, None, None, :]  # (1, 1, 1, M + 1)
+    coords = torch.stack([2.0 * x1 / length - 1.0, torch.zeros_like(x1)], dim=-1)[:, None]
+
+    def lib():
+        return F.grid_sample(e_pad, coords, mode="bilinear", align_corners=True)
+
+    lib_err = float((lib()[:, 0, 0] - cic.gather_cic(e1, x1, m, length)).abs().max())
+    require(lib_err <= 1e-4, f"grid_sample vs the cic gather: max |err| {lib_err}")
+    rows["gather_cic"]["library_ms"] = time_ms(torch, lib)
+    log(f"[kernels] gather's library call: grid_sample {rows['gather_cic']['library_ms']:.4f} ms, "
+        f"max |err| {lib_err:.3g} against the kernel (atol 1e-4)")
 
     # spectral horizon: rot and trig at K=384, H=6, Km=8 on a bump-on-tail
     # state. The kernel and the plain version reduce the mode sums in another
@@ -206,6 +317,8 @@ def check_kernels(torch, rows: dict) -> None:
         max_abs_err=sh_err,
         ms=time_ms(torch, lambda: sh.spectral_horizon(st.x, st.v, u_c, u_s, rot=True, **kw)),
         plain_ms=time_ms(torch, lambda: sh.spectral_horizon_plain(st.x, st.v, u_c, u_s, rot=True, **kw)),
+        library_ms=None,
+        **bound(spectral_ops(k, h, n, km, rot=True), spectral_bytes(k, h, n, km, twin=False)),
     )
     for name in ("deposit_cic", "gather_cic", "spectral_horizon"):
         log(f"[kernels] {name}: kernel {rows[name]['ms']:.4f} ms, "
@@ -248,10 +361,15 @@ def check_grid_kernels(torch, rows: dict) -> None:
             err = max(err, float(dx.abs().max()), float((got[1] - ref[1]).abs().max()))
     log(f"[kernels] fused_leapfrog_step: 3 kinds x exact/kick-field, B={k}, N={n}, M={m}: "
         f"max |err| x, v {err:.3g} (rtol 1e-5, atol 1e-4; field energy rtol 1e-4)")
+    # exact: drift, wrap, deposit, taps, gather, kick, drift, wrap, deposit per
+    # particle; two M x M solves per row
+    leapfrog_ops = k * ((2 * 2 + 2 * 2 + 2 * DEPOSIT_OPS + GATHER_OPS + 3) * n + 2 * solve_ops(m) + m)
     rows["fused_leapfrog_step"].update(
         max_abs_err=err,
         ms=time_ms(torch, lambda: fs.fused_leapfrog_step(xb, vb, u[:, 0], eop, **kw)),
         plain_ms=time_ms(torch, lambda: fs.fused_leapfrog_step_plain(xb, vb, u[:, 0], eop, **kw)),
+        library_ms=None,
+        **bound(leapfrog_ops, 4 * (4 * k * n + 2 * k * m + m * m)),
     )
 
     # kernels 5 and 6 from one shared state: per-step energies to rtol 2e-4
@@ -282,6 +400,9 @@ def check_grid_kernels(torch, rows: dict) -> None:
             max_abs_err=err,
             ms=time_ms(torch, lambda: fn(x0, v0, u, eop, **kw)),
             plain_ms=time_ms(torch, lambda: plain(x0, v0, u, eop, **kw)),
+            library_ms=None,
+            **bound(grid_horizon_ops(k, h, n, m, merged=name == "fused_packed_horizon"),
+                    4 * (2 * n + k * h * m + m * m + k * h)),
         )
     # one contract: the merged kick reassociates the two half-kicks, held on
     # horizon sums to rtol 2e-4, as the experiments hold the TPU kernels
@@ -310,9 +431,11 @@ def check_grid_kernels(torch, rows: dict) -> None:
         rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
         ms = time_ms(torch, lambda: sh.spectral_horizon(x1, v1, u_c, u_s, rot=rot, **kw1))
         plain_ms = time_ms(torch, lambda: sh.spectral_horizon_plain(x1, v1, u_c, u_s, rot=rot, **kw1))
+        b = bound(spectral_ops(k1, h1, n1, km1, rot), spectral_bytes(k1, h1, n1, km1, twin=False))
         log(f"[kernels] spectral_horizon {'rot' if rot else 'trig'}, state in global memory: "
             f"K={k1}, H={h1}, Km={km1}, N={n1}: max |err| {float((got - ref).abs().max()):.3g}, "
-            f"max rel {rel:.3g} (rtol 2e-4); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"max rel {rel:.3g} (rtol 2e-4); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']}, {b['ops']:.4g} operations)")
     for name in ("fused_leapfrog_step", "fused_kdk_horizon", "fused_packed_horizon"):
         log(f"[kernels] {name}: kernel {rows[name]['ms']:.4f} ms, "
             f"plain {rows[name]['plain_ms']:.4f} ms per call")
@@ -344,10 +467,10 @@ def check_against_cpu(torch) -> None:
         cfg, ctrl, mpc, grid, act = _setup(torch, device)
         runs[device] = (cfg, ctrl, dataclasses.replace(mpc, plan_kernel="fused"), grid, act)
     cfg, ctrl, mpc = runs["cpu"][:3]
-    st_cpu = init_state(cfg, gen)
+    st_cpu = init_state(cfg, gen, device="cpu")
     d = 2 * ctrl.max_mode
     cand = torch.clamp(0.3 * torch.randn((mpc.n_candidates, mpc.horizon, d), generator=gen), -1, 1)
-    noise = torch.stack([draw_noise(gen, mpc, mpc.horizon, d) for _ in range(3)])
+    noise = torch.stack([draw_noise(gen, mpc, mpc.horizon, d, device="cpu") for _ in range(3)])
     out = {}
     for device, (cfg, ctrl, mpc, grid, act) in runs.items():
         st = PlasmaState(st_cpu.x.to(device), st_cpu.v.to(device))
@@ -367,24 +490,29 @@ def check_against_cpu(torch) -> None:
 
 
 def _counts(fns: dict) -> dict:
-    return {name: fn.launches for name, fn in fns.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
 
 
 def _kernel_fns() -> dict:
+    """Row name -> (kernel wrapper, its launch count). Kernel 1's wrapper
+    counts every launch in ``launches`` and those of its twin-corrected
+    variant also in ``twin_launches``."""
     from plasma_control_tpu_torch.ops.kernels import cic
     from plasma_control_tpu_torch.ops.kernels import fused_step as fs
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
 
-    return {"deposit_cic": cic.deposit_cic, "gather_cic": cic.gather_cic,
-            "spectral_horizon": sh.spectral_horizon,
-            "fused_leapfrog_step": fs.fused_leapfrog_step,
-            "fused_kdk_horizon": fs.fused_kdk_horizon,
-            "fused_packed_horizon": fs.fused_packed_horizon}
+    return {"deposit_cic": (cic.deposit_cic, "launches"),
+            "gather_cic": (cic.gather_cic, "launches"),
+            "spectral_horizon": (sh.spectral_horizon, "launches"),
+            "spectral_horizon_twin": (sh.spectral_horizon, "twin_launches"),
+            "fused_leapfrog_step": (fs.fused_leapfrog_step, "launches"),
+            "fused_kdk_horizon": (fs.fused_kdk_horizon, "launches"),
+            "fused_packed_horizon": (fs.fused_packed_horizon, "launches")}
 
 
 def _reset(fns: dict) -> None:
-    for fn in fns.values():
-        fn.launches = 0
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
 
 
 def run_slice(torch, rows: dict) -> None:
@@ -392,8 +520,6 @@ def run_slice(torch, rows: dict) -> None:
     from plasma_control_tpu_torch.control.mpc import mpc_rollout
     from plasma_control_tpu_torch.models.pic import init_state
     from plasma_control_tpu_torch.models.rollout import rollout
-    from plasma_control_tpu_torch.ops.kernels import cic
-    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
 
     dev = torch.device("cuda")
     cfg, ctrl, mpc, grid, act = _setup(torch, dev)
@@ -403,17 +529,17 @@ def run_slice(torch, rows: dict) -> None:
     # warm-up: cuBLAS/cuFFT handles and plans, allocator pools
     mpc_rollout(state, grid, cfg, ctrl, mpc, act, torch.Generator(device=dev), n_steps=3)
 
-    counters = {"deposit_cic": cic.deposit_cic, "gather_cic": cic.gather_cic,
-                "spectral_horizon": sh.spectral_horizon}
-    for fn in counters.values():
-        fn.launches = 0
+    fns = _kernel_fns()
+    _reset(fns)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = mpc_rollout(state, grid, cfg, ctrl, mpc, act, plan_gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for name, fn in counters.items():
-        rows[name]["launches"] = fn.launches
+    counts = _counts(fns)
+    counters = ("deposit_cic", "gather_cic", "spectral_horizon")
+    for name in counters:
+        rows[name]["launches"] = counts[name]
 
     t1 = time.perf_counter()
     base = rollout(state, grid, cfg)
@@ -543,7 +669,7 @@ def run_kdk_horizon(torch, rows: dict, state) -> None:
         require(bool(torch.isfinite(a).all()), "kernel 5: non-finite energies")
         require(torch.allclose(b, a, rtol=2e-4, atol=1e-6), "kernel 5 vs kernel 6 on the slice")
         rel = max(rel, float(((b - a).abs() / a.abs()).max()))
-    rows["fused_kdk_horizon"]["launches"] = fns["fused_kdk_horizon"].launches
+    rows["fused_kdk_horizon"]["launches"] = _counts(fns)["fused_kdk_horizon"]
     require(rows["fused_kdk_horizon"]["launches"] == 10, "ten fused_kdk_horizon launches")
     log(f"[kdk] fused_kdk_horizon on 10 candidate blocks of the grid slice (n_eff={pcfg.n_particles}, "
         f"plan mesh {pgrid.n_mesh}) beside fused_packed_horizon: horizon sums max rel {rel:.3g} "
@@ -603,10 +729,14 @@ def run_config4(torch) -> None:
     ms = time_ms(torch, lambda: sh.spectral_horizon(state.x, state.v, u_c, u_s, **kw), reps=10)
     plain_ms = time_ms(torch, lambda: sh.spectral_horizon_plain(state.x, state.v, u_c, u_s, **kw),
                        reps=3)
-    log(f"[config-4] spectral_horizon at the path's shapes (K={u_c.shape[0]}, H={u_c.shape[1]}, "
+    k, h = u_c.shape[:2]
+    b = bound(spectral_ops(k, h, cfg.n_particles, km, rot),
+              spectral_bytes(k, h, cfg.n_particles, km, twin=False))
+    log(f"[config-4] spectral_horizon at the path's shapes (K={k}, H={h}, "
         f"Km={km}, N={cfg.n_particles}, state in global memory): max |err| "
         f"{float((got - ref).abs().max()):.3g}, max rel {rel:.3g} (rtol 2e-4); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b['bound_ms']:.6f} ms "
+        f"({b['bound_by']}, {b['ops']:.4g} operations)")
 
 
 def coherent_state(torch, n: int, length: float, seed: int, amplitude: float = 0.5):
@@ -651,7 +781,7 @@ def check_grid_against_cpu(torch, state) -> None:
     for where, start, drives in starts:
         cand = torch.clamp(0.3 * torch.randn((mpc.n_candidates, mpc.horizon, d), generator=gen),
                            -1, 1)
-        noise = torch.stack([draw_noise(gen, mpc, mpc.horizon, d) for _ in range(3)])
+        noise = torch.stack([draw_noise(gen, mpc, mpc.horizon, d, device="cpu") for _ in range(3)])
         out = {}
         for device, (cfg, ctrl, mpc, grid, act) in runs.items():
             st = PlasmaState(start.x.to(device), start.v.to(device))
@@ -677,6 +807,253 @@ def check_grid_against_cpu(torch, state) -> None:
             f"(atol 1e-2); guard passed {int((~zeroed).sum())} of 3 solves on both")
 
 
+def _twin_setup(torch, device, **mpc_kw):
+    return _setup(torch, device, sim=CFG4_SIM, max_mode=CFG4_MAX_MODE, mpc=dict(TWIN_MPC, **mpc_kw))
+
+
+def _twin_plan(torch, state, device, **mpc_kw):
+    """The twin slice's plan model at ``state``: (plan state, plan grid, plan
+    config, MPC config, targets, plan actuator)."""
+    from plasma_control_tpu_torch.control.mpc import _actuator_cache, _plan_model, twin_targets
+
+    cfg, ctrl, mpc, grid, _ = _twin_setup(torch, device, **mpc_kw)
+    pst, pgrid, pcfg = _plan_model(state, grid, cfg, mpc)
+    target = twin_targets(state.x, pst, pcfg, cfg, ctrl, mpc)
+    pact = _actuator_cache(pcfg.length, pgrid.n_mesh, ctrl.max_mode, torch.float32, device)
+    return pst, pgrid, pcfg, mpc, target, pact
+
+
+def check_twin_kernel(torch, rows: dict) -> None:
+    """Phase 3, third part: kernel 1's twin-corrected variant against its
+    plain version at the twin slice's plan model and with its state in
+    global memory, timed; and the zero-drive identity on the trig drift."""
+    from plasma_control_tpu_torch.control.mpc import _pad_modes, _twin_mode_traj, draw_noise
+    from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cfg, ctrl, mpc, _, _ = _twin_setup(torch, dev)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pst, _, pcfg, mpc, (tc, ts), _ = _twin_plan(torch, state, dev)
+    ka, km = ctrl.max_mode, max(mpc.plan_modes, ctrl.max_mode)
+    k, h, n = mpc.n_candidates, mpc.horizon, pcfg.n_particles
+    cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, h, 2 * ka, device=dev), -1.0, 1.0)
+    u_c, u_s = _pad_modes(cand[..., :ka], km), _pad_modes(cand[..., ka:], km)
+    kw = dict(length=pcfg.length, dt=pcfg.clamped_dt(), n0=pcfg.n0, n_particles=n)
+
+    # both drifts at the slice's plan model (state in shared memory), and
+    # N=20000 with the state in global memory: mode sums reduced in another
+    # order, rtol 2e-4 as for the plain energies
+    n2, k2 = 20_000, 64
+    x2 = torch.rand(n2, generator=gen, device=dev) * pcfg.length
+    v2 = 1.5 * torch.randn(n2, generator=gen, device=dev)
+    tc2, ts2 = (n2 ** 0.5 * torch.randn((h, km), generator=gen, device=dev) for _ in range(2))
+    cases = {"slice": (pst.x, pst.v, u_c, u_s, dict(twin_c=tc, twin_s=ts, n_particles=n)),
+             "global": (x2, v2, u_c[:k2], u_s[:k2], dict(twin_c=tc2, twin_s=ts2, n_particles=n2))}
+    err = 0.0
+    for where, (x, v, uc, us, extra) in cases.items():
+        nn = extra["n_particles"]
+        for rot in (True, False):
+            require(sh.state_in_shared(nn, rot) == (where == "slice"), f"{where}: state placement")
+            args = dict(kw, rot=rot, **extra)
+            before = sh.spectral_horizon.twin_launches
+            got = sh.spectral_horizon(x, v, uc, us, **args)
+            ref = sh.spectral_horizon_plain(x, v, uc, us, **args)
+            torch.cuda.synchronize()
+            require(sh.spectral_horizon.twin_launches == before + 1, "corrected launch counted")
+            require(bool(torch.isfinite(got).all()), f"corrected {where} rot={rot}: non-finite")
+            require(torch.allclose(got, ref, rtol=2e-4, atol=1e-6), f"corrected {where} rot={rot}")
+            rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+            err = max(err, float((got - ref).abs().max()))
+            log(f"[kernels] spectral_horizon_twin {'rot' if rot else 'trig'}, {where} (K={uc.shape[0]}, "
+                f"H={h}, Km={km}, N={nn}, state in {'shared' if where == 'slice' else 'global'} "
+                f"memory): max |err| {float((got - ref).abs().max()):.3g}, max rel {rel:.3g} "
+                f"(rtol 2e-4)")
+    args = dict(kw, rot=sh.use_rot(pcfg.clamped_dt(), pcfg.length, mpc.spectral_drift),
+                twin_c=tc, twin_s=ts)
+    rows["spectral_horizon_twin"].update(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: sh.spectral_horizon(pst.x, pst.v, u_c, u_s, **args), reps=10),
+        plain_ms=time_ms(torch, lambda: sh.spectral_horizon_plain(pst.x, pst.v, u_c, u_s, **args),
+                         reps=3),
+        library_ms=None,
+        **bound(spectral_ops(k, h, n, km, args["rot"]), spectral_bytes(k, h, n, km, twin=True)),
+    )
+    log(f"[kernels] spectral_horizon_twin at the slice's plan model ({'rot' if args['rot'] else 'trig'}): "
+        f"kernel {rows['spectral_horizon_twin']['ms']:.4f} ms, plain "
+        f"{rows['spectral_horizon_twin']['plain_ms']:.4f} ms per call")
+
+    # zero drive on the trig drift, where the kernel's drift is the twin's:
+    # the candidate's phasor is the twin's (c0, s0), the target rho (c0, s0),
+    # so its corrected energy is pe_scale sum_m lambda_m^2 (c0^2 + s0^2) / k_m^2.
+    # lambda from the full state in float64 (cos(m k1 x) directly), at a
+    # coherent two-stream state where mode 1 carries lambda ~ 1
+    coh = coherent_state(torch, cfg.n_particles, cfg.length, seed=12)
+    coh = PlasmaState(coh.x.to(dev), coh.v.to(dev))
+    pst, _, pcfg, mpc, (tc, ts), _ = _twin_plan(torch, coh, dev)
+    zero = torch.zeros((1, h, km), device=dev)
+    got = sh.spectral_horizon(pst.x, pst.v, zero, zero, rot=False, twin_c=tc, twin_s=ts, **kw)[0]
+    c0, s0 = _twin_mode_traj(pst, pcfg, mpc, km)
+    kv = (2.0 * math.pi / cfg.length) * torch.arange(1, km + 1, dtype=torch.float64, device=dev)
+    ang = kv[:, None] * coh.x.double()[None, :]
+    sig2 = torch.clamp(torch.cos(ang).sum(-1) ** 2 + torch.sin(ang).sum(-1) ** 2 - cfg.n_particles,
+                       min=0.0)
+    r = n / cfg.n_particles
+    lam = r * r * sig2 / (r * r * sig2 + n * (1.0 - r))
+    want = (pcfg.n0 ** 2 / n) * ((lam ** 2) * (c0.double() ** 2 + s0.double() ** 2) / kv ** 2).sum(-1)
+    rel = float(((got.double() - want).abs() / want.abs()).max())
+    require(rel <= 1e-4, f"zero-drive identity: max rel {rel}")
+    log(f"[kernels] spectral_horizon_twin trig, zero drive at a coherent state (lambda_1 "
+        f"{float(lam[0]):.6f}): corrected PE = pe_scale sum lambda^2 (c0^2 + s0^2) / k^2 to max rel "
+        f"{rel:.3g} (rtol 1e-4)")
+
+
+def run_twin_slice(torch, rows: dict) -> None:
+    """Phase 4f: the twin slice's 500 control steps, run as five 100-step
+    segments (each continues the last one's state, nominal and generator, so
+    together they are one 500-step run) to see where the host time goes, and
+    the uncontrolled rollout from the same seeded state."""
+    from plasma_control_tpu_torch.control.mpc import mpc_rollout
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.models.rollout import rollout
+
+    dev = torch.device("cuda")
+    cfg, ctrl, mpc, grid, act = _twin_setup(torch, dev)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    steps = cfg.n_steps
+    mpc_rollout(state, grid, cfg, ctrl, mpc, act, torch.Generator(device=dev), n_steps=3)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    st, mean, outs, seg_ms = state, None, [], []
+    fns = _kernel_fns()
+    _reset(fns)
+    for _ in range(steps // 100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg = mpc_rollout(st, grid, cfg, ctrl, mpc, act, gen, n_steps=100, mean0=mean)
+        torch.cuda.synchronize()
+        seg_ms.append(1e3 * (time.perf_counter() - t0) / 100)
+        st, mean = seg.final_state, seg.final_mean
+        outs.append(seg)
+    launches = _counts(fns)
+    wall = sum(seg_ms) * 100 / 1e3
+    field_energy = torch.cat([o.field_energy for o in outs])
+    coeffs = torch.cat([o.coeffs for o in outs])
+    plan_cost = torch.cat([o.plan_cost for o in outs])
+    rows["spectral_horizon_twin"]["launches"] = launches["spectral_horizon_twin"]
+    log(f"[twin] {steps} control steps; kernel launches in the controlled run: {launches}")
+    require(launches["spectral_horizon"] == launches["spectral_horizon_twin"] == steps,
+            "one corrected spectral_horizon launch per solve")
+    require(launches["fused_leapfrog_step"] == launches["fused_kdk_horizon"]
+            == launches["fused_packed_horizon"] == 0, "no grid planner kernel")
+    require(launches["gather_cic"] == 3 * steps, "three gathers per Yoshida-4 step")
+
+    t1 = time.perf_counter()
+    base = rollout(state, grid, cfg)
+    torch.cuda.synchronize()
+    wall_base = time.perf_counter() - t1
+    require(field_energy.shape == (steps,), "twin slice: trace shape")
+    for name, t in (("controlled PE", field_energy), ("uncontrolled PE", base.field_energy),
+                    ("applied coefficients", coeffs), ("plan cost", plan_cost)):
+        require(bool(torch.isfinite(t).all()), f"twin slice: {name} not finite")
+    passed = (coeffs != 0).any(-1)
+    log(f"[twin] fidelity guard let {int(passed.sum())} of {steps} solves through (the others "
+        f"applied no drive); per 100-step segment {[int(p.sum()) for p in passed.split(100)]}")
+    log(f"[twin] tail PE (mean of last 20 steps): controlled {float(field_energy[-20:].mean()):.6g}, "
+        f"uncontrolled {float(base.field_energy[-20:].mean()):.6g}")
+    log(f"[twin] controlled loop: {wall:.3f} s wall, {1e3 * wall / steps:.4f} ms per control step "
+        f"(host clock, synchronised at the segment ends), {steps / wall:.2f} control steps/s; per "
+        f"100-step segment {', '.join(f'{t:.4f}' for t in seg_ms)} ms/step; uncontrolled push "
+        f"{1e3 * wall_base / steps:.4f} ms/step")
+
+
+def run_entry_point(torch) -> None:
+    """Phase 4g: the port's run_mpc entry point with the twin slice's flags
+    for 50 steps, the CLI's dense deposit, saving its run."""
+    import tempfile
+
+    import numpy as np
+
+    from plasma_control_tpu_torch import run_mpc
+    from plasma_control_tpu_torch.io.export import load_run
+
+    fns = _kernel_fns()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = TWIN_FLAGS + ["--t_max", "5", "--is_save", "--save_file", f"{tmp}/data",
+                             "--save_plot", f"{tmp}/plots"]
+        _reset(fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_mpc.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(fns)
+        run = load_run(f"{tmp}/data/two-stream/mpc-control/data.npz")
+    log(f"[entry] python -m plasma_control_tpu_torch.run_mpc {' '.join(argv[:-4])} ...: "
+        f"{wall:.3f} s wall (closed loop, replay, cost traces, saving); launches {launches}")
+    require(launches["spectral_horizon"] == launches["spectral_horizon_twin"] == ENTRY_STEPS,
+            "one corrected spectral_horizon launch per solve of the entry point")
+    require(run["snapshot"].shape == (2 * CFG4_SIM["n_particles"], ENTRY_STEPS + 1),
+            f"snapshot shape {run['snapshot'].shape}")
+    require(bool(np.isfinite(run["PE"]).all()), "entry point: PE not finite")
+    for key in (r"$J_{KL}$", r"$J_{ee}$", r"$J_{ie}$"):
+        trace = run["cost"][key]
+        require(trace.shape == (ENTRY_STEPS,) and bool(np.isfinite(trace).all()),
+                f"entry point: {key} trace")
+    log(f"[entry] data.npz: snapshot {run['snapshot'].shape}, tail PE {float(run['PE'][-5:].mean()):.6g}, "
+        f"J_KL[-1] {float(run['cost'][r'$J_{KL}$'][-1]):.6g}, J_ee[-1] "
+        f"{float(run['cost'][r'$J_{ee}$'][-1]):.6g}, J_ie sum {float(run['cost'][r'$J_{ie}$'].sum()):.6g}")
+
+
+def check_twin_against_cpu(torch) -> None:
+    """Phase 5, third part: the twin slice on the card against the CPU, where
+    every wrapper runs its plain version (``plan_kernel="fused"`` on both
+    sides, so both run kernel 1's arithmetic with the rot drift), with the
+    same states, candidates and noise: one corrected block of 128 candidates
+    at the slice's seeded initial state, and three control steps at K=64
+    with the fidelity guard off. On that quiet state the corrected cost
+    ranks the zero drive first, so the loop starts from a coherent
+    two-stream state, where the corrected costs drive on both sides."""
+    from plasma_control_tpu_torch.control.mpc import candidate_costs, draw_noise, mpc_rollout
+    from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
+
+    cfg, ctrl, _, _, _ = _twin_setup(torch, "cpu")
+    start = init_state(cfg, torch.Generator().manual_seed(13), device="cpu")
+    gen = torch.Generator().manual_seed(14)
+    d = 2 * ctrl.max_mode
+    block = dict(plan_kernel="fused", n_candidates=128)
+    loop = dict(plan_kernel="fused", n_candidates=64, fidelity_guard=False)
+    cand = torch.clamp(0.3 * torch.randn((128, TWIN_MPC["horizon"], d), generator=gen), -1, 1)
+    mpc_loop = _twin_setup(torch, "cpu", **loop)[2]
+    noise = torch.stack([draw_noise(gen, mpc_loop, mpc_loop.horizon, d, device="cpu")
+                         for _ in range(3)])
+    coherent = coherent_state(torch, cfg.n_particles, cfg.length, seed=10)
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = PlasmaState(start.x.to(device), start.v.to(device))
+        pst, pgrid, pcfg, mpc, target, pact = _twin_plan(torch, st, device, **block)
+        costs = candidate_costs(pst, cand.to(device), pgrid, pcfg, mpc, pact, twin_target=target)
+        cfg, ctrl, mpc, grid, act = _twin_setup(torch, device, **loop)
+        st = PlasmaState(coherent.x.to(device), coherent.v.to(device))
+        run = mpc_rollout(st, grid, cfg, ctrl, mpc, act, step_noise=noise.to(device))
+        out[device] = (costs.cpu(), run.field_energy.cpu(), run.coeffs.cpu(), target[0].cpu())
+    (c_gpu, pe_gpu, a_gpu, t_gpu), (c_cpu, pe_cpu, a_cpu, t_cpu) = out["cuda"], out["cpu"]
+    require(torch.allclose(t_gpu, t_cpu, rtol=1e-4, atol=1e-4 * float(t_cpu.abs().max())),
+            "twin targets: card vs CPU")
+    require(torch.allclose(c_gpu, c_cpu, rtol=2e-4), "corrected candidate costs: card vs CPU plain")
+    require(not bool((a_gpu == 0).all()), "the unguarded twin loop applies a drive")
+    # each solve's costs pass through MPPI's softmax (temperature 0.05): the
+    # three-step loop is held to rtol 1e-2 on PE and atol 1e-2 on actions
+    require(torch.allclose(pe_gpu, pe_cpu, rtol=1e-2), f"twin 3-step PE: {pe_gpu} vs {pe_cpu}")
+    require(torch.allclose(a_gpu, a_cpu, atol=1e-2), "twin 3-step applied coefficients")
+    log(f"[twin] card vs CPU plain: targets max |diff| {float((t_gpu - t_cpu).abs().max()):.3g}; "
+        f"128 corrected costs max rel {float(((c_gpu - c_cpu).abs() / c_cpu.abs()).max()):.3g} "
+        f"(rtol 2e-4); 3-step unguarded loop at K=64 from a coherent state: PE {pe_gpu.tolist()} vs {pe_cpu.tolist()} "
+        f"(rtol 1e-2), actions max |a| {float(a_gpu.abs().max()):.3g}, max |diff| "
+        f"{float((a_gpu - a_cpu).abs().max()):.3g} (atol 1e-2)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -696,24 +1073,36 @@ def main() -> int:
                                   replaces="experiments/pallas_fused_step.py:301"),
         "fused_packed_horizon": dict(source="plasma_control_tpu_torch/csrc/fused_step.cu",
                                      replaces="experiments/pallas_fused_step.py:452"),
+        "spectral_horizon_twin": dict(
+            source="plasma_control_tpu_torch/csrc/spectral_horizon.cu",
+            replaces="plasma_control_tpu/ops/pallas/spectral_horizon.py:303"),
     }
     check_kernels(torch, rows)
     check_grid_kernels(torch, rows)
+    check_twin_kernel(torch, rows)
     run_slice(torch, rows)
     end_state = run_grid_slice(torch, rows)
     run_leapfrog_loop(torch, rows)
     run_kdk_horizon(torch, rows, end_state)
     run_config4(torch)
+    run_twin_slice(torch, rows)
+    run_entry_point(torch)
     check_against_cpu(torch)
     check_grid_against_cpu(torch, end_state)
+    check_twin_against_cpu(torch)
     log(f"[total] {time.perf_counter() - t_start:.1f} s wall, build included")
 
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
+         **{key: r[key] for key in keys}}
         for name, r in rows.items()
     ]
+    for row in kernels:
+        log(f"[bound] {row['name']}: {rows[row['name']]['ops']:.4g} operations, "
+            f"{rows[row['name']]['bytes']:.4g} bytes -> bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}); kernel {row['ms']:.4f} ms per call = "
+            f"{100 * row['bound_ms'] / row['ms']:.2f} % of the bound's rate")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

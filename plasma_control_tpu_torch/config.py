@@ -88,11 +88,11 @@ class ControlConfig:
 class MPCConfig:
     """Receding-horizon sampling MPC.
 
-    The port runs the MPPI solve with the spectral and the grid plan model,
-    at full or reduced fidelity with the fidelity guard. ``control/mpc.py``
-    raises ``NotImplementedError`` for the settings it does not run yet (CEM,
-    gradient refinement, chunked costs, AR(1) noise, the twin-corrected cost
-    of reduced-fidelity planning).
+    The port runs the MPPI and CEM solves with the spectral and the grid plan
+    model, at full or reduced fidelity with the fidelity guard and the
+    twin-corrected cost, chunked costs and knot, white or AR(1) noise.
+    ``control/mpc.py`` raises ``NotImplementedError`` for gradient refinement
+    (``n_grad_iters > 0``), the one setting it does not run yet.
     """
 
     horizon: int = 10  # planning horizon in env steps

@@ -45,7 +45,7 @@ class FourierActuator:
         return torch.sum(coeffs**2, dim=-1) * self.length * 0.25
 
 
-def actuator_from_numpy(length: float, n_mesh: int, max_mode: int, device="cpu",
+def actuator_from_numpy(length: float, n_mesh: int, max_mode: int, device="cuda",
                         dtype=torch.float32, **leaves) -> FourierActuator:
     """A :class:`FourierActuator` from its leaves as numpy arrays
     (``basis_cos``, ``basis_sin``, ``wavenumbers``; e.g. ``np.asarray`` of a
@@ -67,7 +67,7 @@ def make_actuator(
     max_mode: int,
     endpoint_grid: bool = True,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> FourierActuator:
     if endpoint_grid:
         xm = np.linspace(0.0, length, n_mesh)  # reference parity

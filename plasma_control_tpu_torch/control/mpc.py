@@ -1,17 +1,24 @@
 """Receding-horizon sampling MPC: the main path of the control loop.
 
-The counterpart of :mod:`plasma_control_tpu.control.mpc` for the MPPI solve,
-with both plan models and multi-fidelity planning. One control step:
+The counterpart of :mod:`plasma_control_tpu.control.mpc`: the MPPI and CEM
+solves, both plan models, multi-fidelity planning with the twin-corrected
+cost, chunked candidate costs and knot, white or AR(1) candidate noise. One
+control step:
 
 1. reduce the plan model when ``plan_particles`` / ``plan_mesh`` ask for it
    (strided particle subsample, coarser plan grid and actuator);
-2. seed the candidate pool with the phase-conjugate feedback action
+2. with ``plan_correction="twin"`` and a subsampled plan state, the (H, Km)
+   noise-correction targets of :func:`twin_targets`, once per solve;
+3. seed the candidate pool with the phase-conjugate feedback action
    (deposit, circulant solve, FFT) at the plan state;
-3. sample K knot-interpolated antithetic candidates around the nominal;
-4. score all K x H candidate rollouts. On CUDA tensors always through the
+4. sample K antithetic candidates around the nominal (knot-interpolated by
+   default; ``smooth_noise > 0`` colours white noise AR(1) instead);
+5. score all K x H candidate rollouts, in sequential chunks of
+   ``plan_chunk`` when it is set. On CUDA tensors always through the
    hand-written kernels, whatever ``plan_kernel`` and ``deposit_method``
-   say: the spectral model in one launch of the spectral horizon kernel
-   (:mod:`..ops.kernels.spectral_horizon`); the grid model with
+   say: the spectral model in one launch of the spectral horizon kernel per
+   chunk (:mod:`..ops.kernels.spectral_horizon`; its twin-corrected variant
+   with the targets of step 2); the grid model with
    ``plan_integrator="kdk"`` in one launch of the merged-kick horizon kernel,
    with ``"leapfrog"`` in H launches of the fused leapfrog step
    (:mod:`..ops.kernels.fused_step`), with ``"env"`` as a Yoshida-4 step
@@ -19,19 +26,21 @@ with both plan models and multi-fidelity planning. One control step:
    counterparts run (K as a batch dimension, a loop over H), as the JAX
    package's CPU ``"auto"`` does; ``plan_kernel="fused"`` there takes the
    spectral kernel's plain version;
-5. MPPI softmax update, then the fidelity guard: a reduced-fidelity solve
-   whose plan-frame coherent signal is not ``fidelity_guard_ratio`` times the
-   subsample's injected noise applies no drive and resets the warm start
-   (``torch.where`` on the device, no host sync);
-6. apply the first action through one full PIC step, record the energies
+6. MPPI softmax update (or ``n_iters`` CEM refits on the ``n_elites``
+   best, steps 4-5 repeated), then the fidelity guard: a reduced-fidelity
+   solve whose plan-frame coherent signal is not ``fidelity_guard_ratio``
+   times the subsample's injected noise applies no drive and resets the warm
+   start (``torch.where`` on the device, no host sync);
+7. apply the first action through one full PIC step, record the energies
    and shift the nominal.
 
 JAX's ``vmap`` over candidates becomes a candidate batch dimension and its
 ``lax.scan`` over time a Python loop. Random draws come from a
 ``torch.Generator``; ``plan(noise=...)`` and ``mpc_rollout(step_noise=...)``
 take the unit-variance draws instead, which is how the tests hand both
-packages the same noise. Settings off this path raise ``NotImplementedError``
-(:func:`_check_supported`).
+packages the same noise. Gradient refinement (``n_grad_iters > 0``) raises
+``NotImplementedError`` (:func:`_check_supported`): it needs autograd through
+the CIC kernels, which have no backward kernel.
 """
 
 from __future__ import annotations
@@ -49,15 +58,15 @@ from ..models.pic import PlasmaState, step
 from ..models.rollout import _energies
 from ..ops.deposit import deposit, gather, shape_weights_dense
 from ..ops.fields import electric_energy, solve_e_mesh
-from ..ops.grid import Grid, make_grid
+from ..ops.grid import Grid, cached_grid
 from ..ops.integrate import yoshida4_coefficients
 from ..ops.kernels.fused_step import fused_leapfrog_step, fused_packed_horizon
 from ..ops.kernels.spectral_horizon import spectral_horizon, use_rot
 from .actuator import FourierActuator, make_actuator
 from .feedback import feedback_coefficients
 
-__all__ = ["MPCOutput", "candidate_costs", "knot_noise", "draw_noise", "plan",
-           "plan_fidelity_check", "mpc_rollout"]
+__all__ = ["MPCOutput", "candidate_costs", "knot_noise", "ar1_noise", "draw_noise", "plan",
+           "plan_fidelity_check", "twin_targets", "mpc_rollout"]
 
 
 class MPCOutput(NamedTuple):
@@ -71,19 +80,12 @@ class MPCOutput(NamedTuple):
     final_mean: torch.Tensor  # (H, 2K) shifted nominal after the last solve
 
 
-def _check_supported(cfg: SimConfig, mpc: MPCConfig) -> None:
+def _check_supported(mpc: MPCConfig) -> None:
     """Raise for the MPC settings this port does not run yet."""
-    unsupported = {
-        "algo='cem'": mpc.algo != "mppi",
-        "gradient refinement (n_grad_iters > 0)": mpc.n_grad_iters > 0,
-        "chunked candidate costs (plan_chunk)": mpc.plan_chunk is not None,
-        "AR(1) candidate noise (smooth_noise > 0)": mpc.smooth_noise > 0.0,
-        "the twin-corrected plan cost (plan_correction='twin' with plan_particles)":
-            mpc.plan_correction == "twin" and _plan_frac(cfg, mpc) < 1.0,
-    }
-    for what, hit in unsupported.items():
-        if hit:
-            raise NotImplementedError(f"MPC with {what} is not ported to PyTorch yet")
+    if mpc.n_grad_iters > 0:
+        raise NotImplementedError(
+            "MPC with gradient refinement (n_grad_iters > 0) is not ported to PyTorch yet"
+        )
 
 
 def _reduced_model(grid: Grid, cfg: SimConfig, mpc: MPCConfig, dtype=torch.float32):
@@ -96,7 +98,7 @@ def _reduced_model(grid: Grid, cfg: SimConfig, mpc: MPCConfig, dtype=torch.float
         plan_cfg = dataclasses.replace(plan_cfg, n_particles=n_eff)
     if mpc.plan_mesh is not None and mpc.plan_mesh < cfg.n_mesh:
         plan_cfg = dataclasses.replace(plan_cfg, n_mesh=mpc.plan_mesh)
-        plan_grid = _grid_cache(mpc.plan_mesh, cfg.length, dtype, grid.e_op.device)
+        plan_grid = cached_grid(mpc.plan_mesh, cfg.length, dtype, grid.e_op.device)
     return plan_grid, plan_cfg
 
 
@@ -183,15 +185,7 @@ def plan_fidelity_check(state: PlasmaState, cfg: SimConfig, ctrl: ControlConfig,
     }
 
 
-_PLAN_GRIDS = {}
 _PLAN_ACTS = {}
-
-
-def _grid_cache(n_mesh: int, length: float, dtype, device):
-    key = (n_mesh, float(length), dtype, str(device))
-    if key not in _PLAN_GRIDS:
-        _PLAN_GRIDS[key] = make_grid(n_mesh, length, dtype=dtype, device=device)
-    return _PLAN_GRIDS[key]
 
 
 def _actuator_cache(length: float, n_mesh: int, max_mode: int, dtype, device):
@@ -394,7 +388,7 @@ def _add_terminal(total: torch.Tensor, pes: torch.Tensor, mpc: MPCConfig) -> tor
     return total
 
 
-def knot_noise(gen, n_candidates, horizon, dim, n_knots, dtype=torch.float32, device="cpu"):
+def knot_noise(gen, n_candidates, horizon, dim, n_knots, dtype=torch.float32, device="cuda"):
     """(K, H, D) unit-variance noise linearly interpolated from ``n_knots``
     iid normal samples along the horizon, each step renormalized to unit
     marginal variance."""
@@ -406,15 +400,32 @@ def knot_noise(gen, n_candidates, horizon, dim, n_knots, dtype=torch.float32, de
     return out / torch.sqrt((1.0 - f) ** 2 + f**2)
 
 
-def draw_noise(gen, mpc: MPCConfig, horizon: int, dim: int, dtype=torch.float32, device="cpu"):
+def ar1_noise(eps: torch.Tensor, beta: float) -> torch.Tensor:
+    """(K, H, D) white noise coloured AR(1) along the horizon:
+    ``out_0 = eps_0``, ``out_t = beta out_{t-1} + sqrt(1 - beta^2) eps_t``, so
+    every step keeps unit variance. ``beta <= 0`` returns ``eps``."""
+    if beta <= 0.0:
+        return eps
+    b = torch.tensor(beta, dtype=eps.dtype, device=eps.device)
+    scale = torch.sqrt(1.0 - b**2)
+    out = [eps[:, 0]]
+    for t in range(1, eps.shape[1]):
+        out.append(b * out[-1] + scale * eps[:, t])
+    return torch.stack(out, dim=1)
+
+
+def draw_noise(gen, mpc: MPCConfig, horizon: int, dim: int, dtype=torch.float32, device="cuda"):
     """(K, H, D) unit-variance candidate perturbations of one solve:
-    knot-interpolated (white when ``n_knots`` is off or >= H), drawn for
-    K/2 candidates and mirrored (eps, -eps) when ``antithetic``."""
+    knot-interpolated, or white coloured by :func:`ar1_noise` when
+    ``smooth_noise > 0`` (an explicit AR(1) setting wins over the knot
+    default) or ``n_knots`` is off or >= H; drawn for K/2 candidates and
+    mirrored (eps, -eps) when ``antithetic``."""
 
     def base(n):
-        if mpc.n_knots and 1 <= mpc.n_knots < horizon:
+        if mpc.smooth_noise <= 0.0 and mpc.n_knots and 1 <= mpc.n_knots < horizon:
             return knot_noise(gen, n, horizon, dim, mpc.n_knots, dtype, device)
-        return torch.randn((n, horizon, dim), generator=gen, dtype=dtype, device=device)
+        eps = torch.randn((n, horizon, dim), generator=gen, dtype=dtype, device=device)
+        return ar1_noise(eps, mpc.smooth_noise)
 
     k = mpc.n_candidates
     if mpc.antithetic and k >= 2:
@@ -462,12 +473,15 @@ def _horizon_cost_spectral(
     cfg: SimConfig,
     mpc: MPCConfig,
     actuator: FourierActuator,
+    twin_target=None,  # optional ((H, Km), (H, Km)) noise-correction targets
 ) -> torch.Tensor:
     """Gridless low-mode spectral rollout cost of a batch of candidates, op
     by op (the JAX package's per-candidate scan with the candidates as a
     batch dimension): the same staggered KDK with merged half-kicks, the
     same initial un-merged half-kick and post-drift PE as the kernel, with
-    the per-mode constants in float32 as there. Returns (...,) costs."""
+    the per-mode constants in float32 as there. With ``twin_target`` each
+    step's PE is the corrected ``|phasor - target|^2`` form. Returns (...,)
+    costs."""
     n_p = cfg.n_particles
     ka = actuator.max_mode
     km = max(int(mpc.plan_modes), ka)
@@ -501,6 +515,8 @@ def _horizon_cost_spectral(
         pc = 2.0 * (g * s) + pair_c[..., t, :]
         ps = 2.0 * (-g * c) + pair_s[..., t, :]
         vh = vh + 0.5 * dt * (-_mode_eval(c1, s1, pc, ps))
+        if twin_target is not None:
+            c, s = c - twin_target[0][t], s - twin_target[1][t]
         pe = pe_scale * torch.sum((c * c + s * s) * inv_k2, dim=-1)
         costs.append(mpc.w_field * pe + mpc.w_input * actuator.input_energy(coeff_seqs[..., t, :]))
         pes.append(pe)
@@ -508,15 +524,94 @@ def _horizon_cost_spectral(
     return _finite_or_huge(total)
 
 
-def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator):
+def _twin_mode_traj(state: PlasmaState, cfg: SimConfig, mpc: MPCConfig, km: int):
+    """Zero-drive twin of the spectral plan rollout: the (H, Km) mode-sum
+    trajectory of the plan state under no external drive, with the
+    discretization of the candidate rollouts (merged-half-kick staggered KDK,
+    the same initial un-merged half kick, post-drift sampling) and the exact
+    trig drift, as in the JAX package. A zero-drive candidate on the op-by-op
+    path reproduces it; on the kernel's rot drift a small residual survives
+    the difference."""
+    n_p = cfg.n_particles
+    dt = cfg.clamped_dt()
+    two_pi_over_l = 2.0 * math.pi / cfg.length
+    k = two_pi_over_l * torch.arange(1, km + 1, dtype=state.x.dtype, device=state.x.device)
+    g = 2.0 * cfg.n0 / (n_p * k)
+
+    t0 = two_pi_over_l * state.x
+    c1_0, s1_0 = torch.cos(t0), torch.sin(t0)
+    c0, s0 = _mode_sums(c1_0, s1_0, km)
+    vh = state.v + 0.5 * dt * (-_mode_eval(c1_0, s1_0, g * s0, -(g * c0)))
+    x, cs, ss = state.x, [], []
+    for _ in range(mpc.horizon):
+        x = torch.remainder(x + dt * vh, cfg.length)
+        ang = two_pi_over_l * x
+        c1, s1 = torch.cos(ang), torch.sin(ang)
+        c, s = _mode_sums(c1, s1, km)
+        vh = vh + 0.5 * dt * (-_mode_eval(c1, s1, 2.0 * (g * s), 2.0 * (-(g * c))))
+        cs.append(c)
+        ss.append(s)
+    return torch.stack(cs), torch.stack(ss)  # each (H, Km)
+
+
+def twin_targets(full_x: torch.Tensor, plan_state: PlasmaState, plan_cfg: SimConfig,
+                 full_cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig):
+    """Noise-correction targets of subsampled spectral planning, or None.
+
+    Returns ``(tc, ts)``, each (H, Km): the per-mode noise fraction
+    ``rho_m = 1 - lambda_m`` times the zero-drive twin's mode-sum trajectory
+    (:func:`_twin_mode_traj`). ``lambda_m`` is the Wiener shrinkage of the
+    subsample's mode phasor, estimated once per solve from the full state:
+    with coherent power ``sig2_m = max(C_m^2 + S_m^2 - N, 0)``, subsample
+    fraction r = n/N and subsample noise power n (1 - r),
+    ``lambda_m = r^2 sig2_m / (r^2 sig2_m + n (1 - r))``. None at full
+    fidelity or when ``mpc.plan_correction != "twin"``; the JAX package's
+    docstring gives the derivation."""
+    if mpc.plan_correction != "twin" or _plan_frac(full_cfg, mpc) >= 1.0:
+        return None
+    km = max(int(mpc.plan_modes), ctrl.max_mode)
+    t = (2.0 * math.pi / full_cfg.length) * full_x.reshape(-1).to(plan_state.x.dtype)
+    cf, sf = _mode_sums(torch.cos(t), torch.sin(t), km)
+    n_full, n_plan = float(full_cfg.n_particles), float(plan_cfg.n_particles)
+    r = n_plan / n_full
+    sig2 = torch.clamp(cf * cf + sf * sf - n_full, min=0.0)
+    lam = (r * r * sig2) / (r * r * sig2 + n_plan * (1.0 - r))
+    rho = 1.0 - lam  # (Km,) noise fraction per mode
+    c0, s0 = _twin_mode_traj(plan_state, plan_cfg, mpc, km)
+    return rho * c0, rho * s0
+
+
+def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator, twin_target=None):
     """(K, H, 2K) candidates -> (K,) costs under the plan model.
 
     ``state``, ``grid``, ``cfg`` and ``actuator`` are the (possibly reduced)
-    planning model. CUDA tensors always go through the kernels: the spectral
-    model through the spectral horizon kernel, the grid model through the
+    planning model; ``twin_target`` the optional (H, Km) targets of
+    :func:`twin_targets` (spectral plan model only). CUDA tensors always go
+    through the kernels: the spectral model through the spectral horizon
+    kernel (its corrected variant with a target), the grid model through the
     fused grid kernels (``"kdk"``, ``"leapfrog"``) or the CIC kernels
-    (``"env"``). No shape falls back to plain PyTorch on the card."""
-    _check_supported(cfg, mpc)
+    (``"env"``). No shape falls back to plain PyTorch on the card.
+
+    ``mpc.plan_chunk`` scores the candidates in sequential chunks of that
+    size, one kernel launch each; the last chunk is padded with copies of
+    candidate 0 whose costs are dropped, so every launch has the requested
+    size."""
+    _check_supported(mpc)
+    if mpc.plan_chunk is not None and coeff_seqs.shape[0] > mpc.plan_chunk:
+        k_total, chunk = coeff_seqs.shape[0], int(mpc.plan_chunk)
+        k_pad = -(-k_total // chunk) * chunk
+        if k_pad != k_total:
+            pad = coeff_seqs[:1].expand(k_pad - k_total, *coeff_seqs.shape[1:])
+            coeff_seqs = torch.cat([coeff_seqs, pad])
+        inner = dataclasses.replace(mpc, plan_chunk=None)
+        out = torch.cat([candidate_costs(state, c, grid, cfg, inner, actuator, twin_target)
+                         for c in coeff_seqs.split(chunk)])
+        return out[:k_total]
+    if twin_target is not None and mpc.plan_model != "spectral":
+        raise ValueError(
+            "plan_correction='twin' requires plan_model='spectral': the grid planner has no "
+            "per-mode phasor to correct"
+        )
     if mpc.plan_model == "grid":
         _reject_grid_pallas_kernel(mpc.plan_kernel)
         if mpc.plan_integrator == "kdk":
@@ -525,40 +620,62 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator):
     ka = actuator.max_mode
     km = max(int(mpc.plan_modes), ka)
     if not state.x.is_cuda and mpc.plan_kernel != "fused":
-        return _horizon_cost_spectral(state, coeff_seqs, cfg, mpc, actuator)
+        return _horizon_cost_spectral(state, coeff_seqs, cfg, mpc, actuator, twin_target)
     # "xla" names the op-by-op scan, whose drift is trig; on the card it runs
     # as the kernel's trig variant
     drift = "trig" if mpc.plan_kernel == "xla" else mpc.spectral_drift
+    tc, ts = (None, None) if twin_target is None else twin_target
     pe = spectral_horizon(
         state.x, state.v,
         _pad_modes(coeff_seqs[..., :ka], km), _pad_modes(coeff_seqs[..., ka:], km),
         length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, n_particles=cfg.n_particles,
-        rot=use_rot(cfg.clamped_dt(), cfg.length, drift),
-    )  # (K, H) post-drift spectral-model PE
+        rot=use_rot(cfg.clamped_dt(), cfg.length, drift), twin_c=tc, twin_s=ts,
+    )  # (K, H) post-drift spectral-model PE, corrected with a target
     pe = _pe_factor(cfg, mpc) * pe
     ie = actuator.input_energy(coeff_seqs)  # (K, H)
     total = _add_terminal(torch.sum(mpc.w_field * pe + mpc.w_input * ie, dim=-1), pe, mpc)
     return _finite_or_huge(total)
 
 
-def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator):
-    """MPPI solve body over handed-in unit-variance noise (K, H, D)."""
+def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, twin_target=None):
+    """MPPI or CEM solve body over handed-in unit-variance noise: (K, H, D)
+    for MPPI, (n_iters, K, H, D) for CEM."""
     h, d = mean.shape
-    cand = mean[None] + sigma * noise
-    cand[0] = mean  # keep the nominal itself in the pool: never regress
+    fb_seq = None
     if mpc.seed_feedback and mpc.n_candidates >= 2:
         # phase-conjugate expert action at the current state, held over the horizon
         dens = deposit(state.x, grid, n0=cfg.n0, kind=cfg.interpol, method=cfg.deposit_method)
         fa, fb = feedback_coefficients(solve_e_mesh(dens, grid, cfg.n0), ctrl.max_mode)
-        cand[1] = torch.cat([fa, fb]).to(mean.dtype).expand(h, d)
-    cand = torch.clamp(cand, ctrl.coeff_min, ctrl.coeff_max)
-    costs = candidate_costs(state, cand, grid, cfg, mpc, actuator)
-    best = torch.min(costs)
-    w = torch.softmax(-(costs - best) / mpc.temperature, dim=0)
-    new_mean = torch.einsum("k,khd->hd", w, cand)
-    return new_mean[0], new_mean, best
+        fb_seq = torch.cat([fa, fb]).to(mean.dtype).expand(h, d)
 
+    def costs_of(cand):
+        return candidate_costs(state, cand, grid, cfg, mpc, actuator, twin_target)
 
+    if mpc.algo == "mppi":
+        cand = mean[None] + sigma * noise
+        cand[0] = mean  # keep the nominal itself in the pool: never regress
+        if fb_seq is not None:
+            cand[1] = fb_seq
+        cand = torch.clamp(cand, ctrl.coeff_min, ctrl.coeff_max)
+        costs = costs_of(cand)
+        best = torch.min(costs)
+        w = torch.softmax(-(costs - best) / mpc.temperature, dim=0)
+        new_mean = torch.einsum("k,khd->hd", w, cand)
+        return new_mean[0], new_mean, best
+    # CEM: refit mean and spread to the n_elites cheapest, n_iters times
+    mu = mean
+    sd = torch.broadcast_to(torch.as_tensor(sigma, dtype=mean.dtype, device=mean.device), (h, d))
+    for eps in noise:
+        cand = torch.clamp(mu[None] + sd * eps, ctrl.coeff_min, ctrl.coeff_max)
+        cand[0] = mu
+        if fb_seq is not None:
+            cand[1] = torch.clamp(fb_seq, ctrl.coeff_min, ctrl.coeff_max)
+        costs = costs_of(cand)
+        elites = cand[torch.topk(-costs, mpc.n_elites).indices]
+        mu = elites.mean(dim=0)
+        sd = elites.std(dim=0, correction=0) + 1e-3
+        best = torch.min(costs)
+    return mu[0], mu, best
 def _apply_fidelity_guard(plan_out, full_x, full_cfg, ctrl, mpc):
     """Gate an (action, new_mean, best) solve on the fidelity ratio.
 
@@ -595,11 +712,12 @@ def plan(
 
     ``state``, ``grid``, ``cfg`` and ``actuator`` are the full environment
     model; the candidates are scored on the reduced plan model when
-    ``plan_particles`` / ``plan_mesh`` ask for it, and the fidelity guard
-    then gates the result. ``noise``: optional (K, H, 2K) unit-variance
-    perturbations (antithetic pairs included) in place of draws from
-    ``generator``."""
-    _check_supported(cfg, mpc)
+    ``plan_particles`` / ``plan_mesh`` ask for it (with the twin-corrected
+    cost under ``plan_correction="twin"``), and the fidelity guard then gates
+    the result. ``noise``: optional unit-variance perturbations (antithetic
+    pairs included) in place of draws from ``generator``: (K, H, 2K) for
+    MPPI, (n_iters, K, H, 2K) for CEM."""
+    _check_supported(mpc)
     if mean.shape[-1] != 2 * actuator.max_mode:
         raise ValueError(
             f"coefficient/actuator mode mismatch: the nominal carries "
@@ -610,13 +728,17 @@ def plan(
     if noise is None:
         if generator is None:
             raise ValueError("plan needs a torch.Generator or handed-in noise")
-        noise = draw_noise(generator, mpc, h, d, mean.dtype, mean.device)
+        draws = [draw_noise(generator, mpc, h, d, mean.dtype, mean.device)
+                 for _ in range(1 if mpc.algo == "mppi" else mpc.n_iters)]
+        noise = draws[0] if mpc.algo == "mppi" else torch.stack(draws)
     full_x, full_cfg = state.x, cfg
     state, grid, cfg = _plan_model(state, grid, cfg, mpc)
     if actuator.n_mesh != grid.n_mesh:
         actuator = _actuator_cache(cfg.length, grid.n_mesh, actuator.max_mode, mean.dtype,
                                    mean.device)
-    out = _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator)
+    # noise-floor correction of subsampled planning, once per solve
+    target = twin_targets(full_x, state, cfg, full_cfg, ctrl, mpc)
+    out = _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, target)
     return _apply_fidelity_guard(out, full_x, full_cfg, ctrl, mpc)
 
 
@@ -635,8 +757,9 @@ def mpc_rollout(
     """Closed-loop receding-horizon control for ``n_steps`` env steps.
 
     Each step solves, applies the first action through one full PIC step
-    and shifts the nominal. ``step_noise`` (T, K, H, 2K) overrides the
-    per-solve draws (the counterpart of JAX's ``step_keys``)."""
+    and shifts the nominal. ``step_noise`` (T, K, H, 2K), or (T, n_iters, K,
+    H, 2K) for CEM, overrides the per-solve draws (the counterpart of JAX's
+    ``step_keys``)."""
     t_steps = step_noise.shape[0] if step_noise is not None else (
         n_steps if n_steps is not None else cfg.n_steps
     )

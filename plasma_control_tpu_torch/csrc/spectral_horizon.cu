@@ -8,9 +8,12 @@
 // post-drift field energy of every step: pe (K, H).
 //
 // Bound on the H100: arithmetic. A solve is K*H*N particle-steps of about
-// 4*Km FMAs each (recurrence, mode sums and field evaluation: ~1.5 GFLOP at
-// K=384, H=6, N=5000, Km=8), against 40 KB of particle state and 25 KB of
-// coefficients in. The design keeps every byte of state on chip:
+// 10*Km operations each (one harmonic recurrence, mode sums and field
+// evaluation: ~1.2 GFLOP at K=384, H=6, N=5000, Km=8), against 40 KB of
+// particle state and 25 KB of coefficients in. This kernel runs the
+// recurrence twice per particle-step (pass 2 below), ~14*Km operations and
+// ~1.4 GFLOP there: that second pass is its overhead, traded for keeping no
+// per-particle harmonics. The design keeps every byte of state on chip:
 //  * one CTA per candidate (K=384 CTAs);
 //  * the candidate's particle state lives in shared memory for all H steps,
 //    one array per quantity so that neighbouring threads hit neighbouring
@@ -38,6 +41,21 @@
 // and mostly misses L2 at config-4's N = 100 000 (460-615 MB for K = 384).
 // One CTA per candidate stays: a split of a candidate over a thread-block
 // cluster with DSMEM reductions is later speed work.
+//
+// Twin-corrected variant (template flag CORRECTED; the TPU kernel's
+// `corrected` path, spectral_horizon.py:198-205, 289-292): with the (H, Km)
+// noise-correction targets tc, ts of control/mpc.py::twin_targets, the energy
+// of step t is sum_m ((c_m - tc[t,m])^2 + (s_m - ts[t,m])^2) / k_m^2 instead of
+// sum_m (c_m^2 + s_m^2) / k_m^2. Only thread 0's energy sum changes: two
+// subtractions per mode and step, and 2*H*Km floats read from global memory
+// (L2-resident, the same for every candidate; H is unbounded, so they do not
+// go into the by-value SpectralParams). The rollout, the reductions and the
+// state are those of the plain variant, so the corrected kernel is bound by
+// the same arithmetic: at the twin slice's plan model (K=1024, H=10, Km=16,
+// N=10000) the function needs ~19 GFLOP per solve, 0.28 ms at the card's
+// 67 TFLOP/s fp32 (~27 GFLOP as written, with the second recurrence). Its
+// 120 KB (rot) or 160 KB (trig) of state per candidate leave room for one
+// CTA per SM, 8 of 64 warps, so latency, not the FMA rate, sets its time.
 //
 // Semantics follow the TPU kernel term by term: the prologue is an un-merged
 // half kick with g_m and u_0; every step uses 2*g_m and pair_t = u_t + u_{t+1};
@@ -155,17 +173,23 @@ __device__ __forceinline__ void reduce_modes(float (&cs)[kMaxModes], float (&ss)
   __syncthreads();
 }
 
-template <bool ROT, bool GLOBAL>
+// Device pointers of one launch: x0, v0 (n,); u0c, u0s (k, km); pair_c, pair_s
+// (k, h*km); tc, ts (h*km) targets of the corrected variant, else null;
+// pe (k, h); scratch (k, (3 + !rot) * n) or null (state in shared memory).
+struct Buffers {
+  const float *x0, *v0, *u0c, *u0s, *pair_c, *pair_s, *tc, *ts;
+  float *pe, *scratch;
+};
+
+template <bool ROT, bool GLOBAL, bool CORRECTED>
 __global__ void __launch_bounds__(kThreads)
-spectral_horizon_kernel(const float* __restrict__ x0, const float* __restrict__ v0,
-                        const float* __restrict__ u0c, const float* __restrict__ u0s,
-                        const float* __restrict__ pair_c, const float* __restrict__ pair_s,
-                        float* __restrict__ pe, float* __restrict__ scratch,
-                        const SpectralParams p) {
+spectral_horizon_kernel(const Buffers b, const SpectralParams p) {
   __shared__ Reduction r;
   extern __shared__ float smem_state[];
+  const float* __restrict__ x0 = b.x0;
+  const float* __restrict__ v0 = b.v0;
   const int n = p.n, km = p.km, k = blockIdx.x;
-  float* state = GLOBAL ? scratch + (size_t)k * (ROT ? 3 : 4) * n : smem_state;
+  float* state = GLOBAL ? b.scratch + (size_t)k * (ROT ? 3 : 4) * n : smem_state;
   float* c1 = state;          // cos(k1 x)
   float* s1 = state + n;      // sin(k1 x)
   float* vh = state + 2 * n;  // staggered velocity
@@ -186,7 +210,7 @@ spectral_horizon_kernel(const float* __restrict__ x0, const float* __restrict__ 
     if (!ROT) x[q] = xq;
     add_harmonics(cn, sn, km, cs, ss);
   }
-  reduce_modes(cs, ss, p, 1.0f, u0c + (size_t)k * km, u0s + (size_t)k * km, r);
+  reduce_modes(cs, ss, p, 1.0f, b.u0c + (size_t)k * km, b.u0s + (size_t)k * km, r);
   for (int q = threadIdx.x; q < n; q += kThreads)
     vh[q] = vh[q] + p.half_dt * (-eval_harmonics(c1[q], s1[q], km, r.coef));
 
@@ -216,31 +240,44 @@ spectral_horizon_kernel(const float* __restrict__ x0, const float* __restrict__ 
       add_harmonics(cn, sn, km, cs, ss);
     }
     const size_t col = ((size_t)k * p.h + t) * km;
-    reduce_modes(cs, ss, p, 2.0f, pair_c + col, pair_s + col, r);
+    reduce_modes(cs, ss, p, 2.0f, b.pair_c + col, b.pair_s + col, r);
     if (threadIdx.x == 0) {
       float acc = 0.0f;
       for (int m = 0; m < km; ++m) {
-        const float c = r.sums[m], s = r.sums[kMaxModes + m];
+        float c = r.sums[m], s = r.sums[kMaxModes + m];
+        if (CORRECTED) {  // the phasor relative to the zero-drive twin's target
+          c = c - b.tc[t * km + m];
+          s = s - b.ts[t * km + m];
+        }
         acc = acc + (c * c + s * s) * p.inv_k2[m];
       }
-      pe[(size_t)k * p.h + t] = p.pe_scale * acc;
+      b.pe[(size_t)k * p.h + t] = p.pe_scale * acc;
     }
     for (int q = threadIdx.x; q < n; q += kThreads)
       vh[q] = vh[q] + p.half_dt * (-eval_harmonics(c1[q], s1[q], km, r.coef));
   }
 }
 
-template <bool ROT, bool GLOBAL>
-int launch(const float* x0, const float* v0, const float* u0c, const float* u0s,
-           const float* pair_c, const float* pair_s, float* pe, float* scratch,
-           const SpectralParams& p, cudaStream_t stream) {
+template <bool ROT, bool GLOBAL, bool CORRECTED>
+int launch(const Buffers& b, const SpectralParams& p, cudaStream_t stream) {
   const size_t smem = GLOBAL ? 0 : (ROT ? 3 : 4) * sizeof(float) * (size_t)p.n;
-  cudaError_t err = cudaFuncSetAttribute(spectral_horizon_kernel<ROT, GLOBAL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto* kernel = spectral_horizon_kernel<ROT, GLOBAL, CORRECTED>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  spectral_horizon_kernel<ROT, GLOBAL><<<p.k, kThreads, smem, stream>>>(
-      x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p);
+  kernel<<<p.k, kThreads, smem, stream>>>(b, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ROT, bool GLOBAL>
+int launch_variant(const Buffers& b, const SpectralParams& p, cudaStream_t stream) {
+  return b.tc ? launch<ROT, GLOBAL, true>(b, p, stream) : launch<ROT, GLOBAL, false>(b, p, stream);
+}
+
+template <bool ROT>
+int launch_placement(const Buffers& b, const SpectralParams& p, cudaStream_t stream) {
+  return b.scratch ? launch_variant<ROT, true>(b, p, stream)
+                   : launch_variant<ROT, false>(b, p, stream);
 }
 
 }  // namespace
@@ -248,20 +285,19 @@ int launch(const float* x0, const float* v0, const float* u0c, const float* u0s,
 extern "C" {
 
 // x0, v0: (n,); u0c, u0s: (k, km); pair_c, pair_s: (k, h*km); pe: (k, h).
-// scratch: null keeps each candidate's state in (3 + !rot) * 4 * n bytes of
-// shared memory (a launch beyond the card's shared memory is refused and
-// reported); otherwise a (k, (3 + !rot) * n) float buffer that holds it in
-// global memory. km <= 16.
+// tc, ts: (h, km) targets of the twin-corrected energy, both null for the
+// plain energy. scratch: null keeps each candidate's state in
+// (3 + !rot) * 4 * n bytes of shared memory (a launch beyond the card's
+// shared memory is refused and reported); otherwise a (k, (3 + !rot) * n)
+// float buffer that holds it in global memory. km <= 16.
 int pct_spectral_horizon(const float* x0, const float* v0, const float* u0c, const float* u0s,
-                         const float* pair_c, const float* pair_s, float* pe, float* scratch,
-                         SpectralParams p, int rot, cudaStream_t stream) {
-  if (p.km < 1 || p.km > kMaxModes || p.k < 1 || p.h < 1 || p.n < 1)
+                         const float* pair_c, const float* pair_s, const float* tc,
+                         const float* ts, float* pe, float* scratch, SpectralParams p, int rot,
+                         cudaStream_t stream) {
+  if (p.km < 1 || p.km > kMaxModes || p.k < 1 || p.h < 1 || p.n < 1 || (!tc != !ts))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (scratch)
-    return rot ? launch<true, true>(x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p, stream)
-               : launch<false, true>(x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p, stream);
-  return rot ? launch<true, false>(x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p, stream)
-             : launch<false, false>(x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, p, stream);
+  const Buffers b{x0, v0, u0c, u0s, pair_c, pair_s, tc, ts, pe, scratch};
+  return rot ? launch_placement<true>(b, p, stream) : launch_placement<false>(b, p, stream);
 }
 
 }  // extern "C"

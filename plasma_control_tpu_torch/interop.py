@@ -20,7 +20,7 @@ from .ops.grid import grid_from_numpy
 __all__ = ["state_from_numpy", "grid_from_numpy", "actuator_from_numpy"]
 
 
-def state_from_numpy(x, v, device="cpu", dtype=torch.float32) -> PlasmaState:
+def state_from_numpy(x, v, device="cuda", dtype=torch.float32) -> PlasmaState:
     """A :class:`PlasmaState` from (N,) position and velocity arrays
     (``torch.tensor`` copies them)."""
     return PlasmaState(

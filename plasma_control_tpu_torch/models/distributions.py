@@ -52,6 +52,10 @@ class TwoStream:
         v_minus = _truncated_normal(gen, n2, -self.v0, self.sigma, -V_WINDOW, V_WINDOW, device, dtype)
         return x, torch.cat([v_plus, v_minus])
 
+    def high_indices(self) -> torch.Tensor:
+        """No beam of its own: empty."""
+        return torch.arange(0)
+
 
 @dataclasses.dataclass(frozen=True)
 class BumpOnTail:
@@ -76,6 +80,10 @@ class BumpOnTail:
         v_beam = _truncated_normal(gen, n2, self.v0, self.sigma, -V_WINDOW, V_WINDOW, device, dtype)
         return x, torch.cat([v_bg, v_beam])
 
+    def high_indices(self) -> torch.Tensor:
+        """Indices of the beam ('high energy') particles, [N1, N)."""
+        return torch.arange(self.n_background, self.n_samples)
+
 
 @dataclasses.dataclass(frozen=True)
 class Maxwellian:
@@ -99,6 +107,10 @@ class Maxwellian:
         v = _truncated_normal(gen, self.n_samples, 0.0, self.vth, -V_WINDOW, V_WINDOW, device, dtype)
         return x, v
 
+    def high_indices(self) -> torch.Tensor:
+        """No beam: empty."""
+        return torch.arange(0)
+
 
 def make_distribution(cfg):
     """Distribution from a :class:`SimConfig`."""
@@ -114,7 +126,7 @@ def make_distribution(cfg):
     raise ValueError(f"unknown simcase {cfg.simcase}")
 
 
-def sample_initial_state(cfg, gen: torch.Generator, device="cpu", dtype=torch.float32):
+def sample_initial_state(cfg, gen: torch.Generator, device="cuda", dtype=torch.float32):
     """Sample (x, v) and apply the velocity perturbation
     ``v *= 1 + A sin(2 pi n_mode x / L)``; ``landau`` carries its perturbation
     in the positions instead."""

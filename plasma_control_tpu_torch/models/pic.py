@@ -28,7 +28,7 @@ class PlasmaState(NamedTuple):
     v: torch.Tensor
 
 
-def init_state(cfg: SimConfig, gen: torch.Generator, device="cpu", dtype=torch.float32) -> PlasmaState:
+def init_state(cfg: SimConfig, gen: torch.Generator, device="cuda", dtype=torch.float32) -> PlasmaState:
     """Sample the initial distribution with its perturbation applied; ``gen``
     must live on ``device``."""
     x, v = sample_initial_state(cfg, gen, device=device, dtype=dtype)

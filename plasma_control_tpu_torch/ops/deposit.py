@@ -4,6 +4,10 @@ The counterpart of :mod:`plasma_control_tpu.ops.deposit`:
 
 * ``method="dense"``: evaluate the shape function for every (particle, cell)
   pair and reduce (deposit) or contract with the field (gather);
+* ``method="scatter"``: each particle's two (CIC) or three (TSC) cells and
+  weights (:func:`deposit_and_gather_indices`), summed with ``scatter_add_``
+  (deposit) or read back with ``gather`` (gather). This is XLA code in the
+  JAX package, not a TPU kernel, so plain PyTorch ops are its port;
 * ``method="pallas"``: the hand-written kernel of :mod:`.kernels.cic` (the
   config value is shared with the JAX package, where it names the Pallas TPU
   kernel). On CPU tensors it runs the kernel's plain PyTorch version.
@@ -24,7 +28,8 @@ from .grid import Grid
 Kind = Literal["cic", "tsc", "tsc_standard"]
 Method = Literal["dense", "scatter", "pallas"]
 
-__all__ = ["deposit", "gather", "shape_weights_dense", "shape_weights_from_offset"]
+__all__ = ["deposit", "gather", "shape_weights_dense", "shape_weights_from_offset",
+           "deposit_and_gather_indices"]
 
 
 def _wrapped_offset(x: torch.Tensor, grid: Grid) -> torch.Tensor:
@@ -71,11 +76,38 @@ def shape_weights_dense(x: torch.Tensor, grid: Grid, kind: Kind = "cic") -> torc
     return shape_weights_from_offset(_wrapped_offset(x, grid), kind)
 
 
+def deposit_and_gather_indices(x: torch.Tensor, grid: Grid, kind: Kind = "cic"):
+    """Scatter-path cells and weights of (..., N) positions, in the
+    reference's layout: CIC ((idx_l, idx_r), (w_l, w_r)); TSC and textbook
+    TSC ((idx_l, idx_m, idx_r), (w_l, w_m, w_r))."""
+    m = grid.n_mesh
+    pos = torch.remainder(x, grid.length) / grid.dx
+    base = torch.floor(pos).long()
+    frac = pos - base
+    if kind == "cic":
+        return (torch.remainder(base, m), torch.remainder(base + 1, m)), (1.0 - frac, frac)
+    if kind == "tsc":
+        w_l = 0.5 * (1.5 - frac) ** 2
+        w_m = 0.75 - (frac - 1.0) ** 2
+        w_r = 0.5 * (frac - 0.5) ** 2
+        cells = (torch.remainder(base - 1, m), torch.remainder(base, m),
+                 torch.remainder(base + 1, m))
+        return cells, (w_l, w_m, w_r)
+    if kind == "tsc_standard":
+        # centred on the nearest cell, offsets relative to it
+        c = torch.round(pos).long()
+        u = pos - c
+        w_m = 0.75 - u**2
+        w_l = 0.5 * (0.5 - u) ** 2
+        w_r = 0.5 * (0.5 + u) ** 2
+        cells = (torch.remainder(c - 1, m), torch.remainder(c, m), torch.remainder(c + 1, m))
+        return cells, (w_l, w_m, w_r)
+    raise ValueError(f"unknown interpolation kind: {kind}")
+
+
 def _check_method(method: str) -> None:
-    if method not in ("dense", "pallas"):
-        raise NotImplementedError(
-            f"deposit method {method!r} is not ported; use 'dense' or 'pallas'"
-        )
+    if method not in ("dense", "scatter", "pallas"):
+        raise ValueError(f"unknown deposit method {method!r}: use 'dense', 'scatter' or 'pallas'")
 
 
 def deposit(
@@ -94,6 +126,10 @@ def deposit(
         from .kernels.cic import deposit_cic
 
         n = deposit_cic(xw, grid.n_mesh, grid.length, kind=kind)
+    elif method == "scatter":
+        n = torch.zeros(x.shape[:-1] + (grid.n_mesh,), dtype=x.dtype, device=x.device)
+        for idx, w in zip(*deposit_and_gather_indices(x, grid, kind)):
+            n.scatter_add_(-1, idx, w)
     else:
         n = shape_weights_dense(xw, grid, kind).sum(-2)
     if normalize:
@@ -116,5 +152,13 @@ def gather(
         from .kernels.cic import gather_cic
 
         return gather_cic(field_mesh, xw, grid.n_mesh, grid.length, kind=kind)
+    if method == "scatter":
+        idxs, ws = deposit_and_gather_indices(x, grid, kind)
+        batch = torch.broadcast_shapes(field_mesh.shape[:-1], x.shape[:-1])
+        field = field_mesh.expand(*batch, grid.n_mesh)
+        out = torch.zeros(*batch, x.shape[-1], dtype=x.dtype, device=x.device)
+        for idx, w in zip(idxs, ws):
+            out = out + w * torch.gather(field, -1, idx.expand(*batch, x.shape[-1]))
+        return out
     w = shape_weights_dense(xw, grid, kind)
     return (w @ field_mesh[..., :, None])[..., 0]

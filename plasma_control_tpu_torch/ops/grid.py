@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Grid", "make_grid", "grid_from_numpy", "fd_laplacian_eigenvalues",
+__all__ = ["Grid", "make_grid", "cached_grid", "grid_from_numpy", "fd_laplacian_eigenvalues",
            "fd_gradient_eigenvalues"]
 
 GRID_LEAVES = ("e_op", "phi_op", "inv_lap_eig", "e_eig_r", "e_eig_i", "cells")
@@ -66,7 +66,7 @@ class Grid:
         return self.length / self.n_mesh
 
 
-def grid_from_numpy(n_mesh: int, length: float, device="cpu", dtype=torch.float32,
+def grid_from_numpy(n_mesh: int, length: float, device="cuda", dtype=torch.float32,
                     **leaves) -> Grid:
     """A :class:`Grid` from its leaves as numpy arrays (``e_op``, ``phi_op``,
     ``inv_lap_eig``, ``e_eig_r``, ``e_eig_i``, ``cells``; e.g. ``np.asarray``
@@ -81,7 +81,7 @@ def grid_from_numpy(n_mesh: int, length: float, device="cpu", dtype=torch.float3
     )
 
 
-def make_grid(n_mesh: int, length: float, dtype=torch.float32, device="cpu") -> Grid:
+def make_grid(n_mesh: int, length: float, dtype=torch.float32, device="cuda") -> Grid:
     """Build a periodic grid with operators computed in float64 on the host."""
     dx = length / n_mesh
     lam = fd_laplacian_eigenvalues(n_mesh, dx)
@@ -100,3 +100,16 @@ def make_grid(n_mesh: int, length: float, dtype=torch.float32, device="cpu") -> 
         "cells": dx * np.arange(n_mesh),
     }
     return grid_from_numpy(n_mesh, length, device=device, dtype=dtype, **leaves)
+
+
+_GRIDS = {}
+
+
+def cached_grid(n_mesh: int, length: float, dtype, device) -> Grid:
+    """:func:`make_grid` built once per (n_mesh, length, dtype, device) and
+    reused: the plan grid of reduced-fidelity planning and the objective's
+    reward mesh."""
+    key = (n_mesh, float(length), dtype, str(device))
+    if key not in _GRIDS:
+        _GRIDS[key] = make_grid(n_mesh, length, dtype=dtype, device=device)
+    return _GRIDS[key]

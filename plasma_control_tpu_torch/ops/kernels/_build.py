@@ -88,8 +88,8 @@ _SIGNATURES = {
     "pct_cic_deposit": [_P, _P, _I, _I, _I, _F, _I, _P],
     # e, x, out, b, n, m, inv_dx, kind, stream
     "pct_cic_gather": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
-    # x0, v0, u0c, u0s, pair_c, pair_s, pe, scratch, params, rot, stream
-    "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _P],
+    # x0, v0, u0c, u0s, pair_c, pair_s, tc, ts, pe, scratch, params, rot, stream
+    "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _P],
     # x, v, e_ext, eop_t, xo, vo, eo, b, params, exact, eop_smem, state_smem, stream
     "pct_fused_leapfrog_step": [_P, _P, _P, _P, _P, _P, _P, _I, GridParams, _I, _I, _I, _P],
     # x0, v0, u, eop_t, pe, scratch, k, params, merged, eop_smem, stream

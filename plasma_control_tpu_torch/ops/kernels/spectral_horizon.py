@@ -12,8 +12,12 @@ candidate's particle state in shared memory for the whole horizon.
 The plain version follows the TPU kernel op by op (same constants, same
 order of operations), so on CPU tensors it stands in for the kernel in the
 parity tests. Drift variants: ``rot`` (small-angle rotation of the carried
-base-harmonic phasor) and ``trig`` (wrap, then cos/sin). The twin-corrected
-variant of the TPU kernel is not ported yet.
+base-harmonic phasor) and ``trig`` (wrap, then cos/sin). With the (H, Km)
+noise-correction targets ``twin_c``, ``twin_s`` of
+:func:`plasma_control_tpu_torch.control.mpc.twin_targets`, both compute the
+TPU kernel's twin-corrected energies
+``n0^2/N * sum_m ((c_m - tc)^2 + (s_m - ts)^2) / k_m^2`` (the kernel's
+``CORRECTED`` template variant).
 
 Every N runs on the card: where a candidate's state does not fit one CTA's
 shared memory, the wrapper allocates a global scratch for it and the same
@@ -82,8 +86,10 @@ def _pairs(u: torch.Tensor) -> torch.Tensor:
     return torch.cat([u[:, 1:], u[:, -1:]], dim=1) + u
 
 
-def spectral_horizon_plain(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot):
-    """Plain version: x0, v0 (N,); u_c, u_s (K, H, Km) -> (K, H) float32."""
+def spectral_horizon_plain(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot,
+                           twin_c=None, twin_s=None):
+    """Plain version: x0, v0 (N,); u_c, u_s (K, H, Km); twin_c, twin_s
+    (H, Km) or None -> (K, H) float32."""
     k_cand, horizon, km = u_c.shape
     g, inv_k2, pe_scale = _constants(km, length, n0, n_particles)
     g, inv_k2 = [float(v) for v in g], [float(v) for v in inv_k2]
@@ -142,24 +148,33 @@ def spectral_horizon_plain(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
             pc = 2.0 * (g[m] * sm) + pair_c[:, t, m : m + 1]
             ps = 2.0 * (-(g[m] * cm)) + pair_s[:, t, m : m + 1]
             acc = acc + pc * c_prev + ps * s_prev
+            if twin_c is not None:
+                cm = cm - twin_c[t, m]
+                sm = sm - twin_s[t, m]
             pe = pe + (cm * cm + sm * sm) * inv_k2[m]
         vh = vh + 0.5 * dt * (-acc)
         pes.append(pe_scale * pe)
     return torch.cat(pes, dim=1)
 
 
-def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot):
+def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot,
+                           twin_c, twin_s):
     k_cand, horizon, km = u_c.shape
     if not spectral_horizon_supported(n_particles, km):
         raise ValueError(
             f"spectral_horizon: Km={km} modes (N={n_particles}) beyond the kernel's "
             f"limit Km <= {_build.MAX_MODES}"
         )
-    tensors = (x0, v0, u_c, u_s)
+    corrected = twin_c is not None
+    if corrected != (twin_s is not None):
+        raise ValueError("spectral_horizon: pass both twin_c and twin_s, or neither")
+    tensors = (x0, v0, u_c, u_s) + ((twin_c, twin_s) if corrected else ())
     if any(t.dtype != torch.float32 or t.device != x0.device for t in tensors):
         raise TypeError("spectral_horizon: the CUDA kernel takes float32 tensors on one device")
     if x0.shape != (n_particles,) or v0.shape != (n_particles,) or u_s.shape != u_c.shape:
         raise ValueError("spectral_horizon: x0, v0 must be (N,) and u_c, u_s (K, H, Km)")
+    if corrected and not twin_c.shape == twin_s.shape == (horizon, km):
+        raise ValueError("spectral_horizon: twin_c, twin_s must be (H, Km)")
     g, inv_k2, pe_scale = _constants(km, length, n0, n_particles)
     params = _build.SpectralParams(
         k=k_cand, h=horizon, km=km, n=n_particles,
@@ -173,6 +188,7 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     u0c, u0s = u_c[:, 0].contiguous(), u_s[:, 0].contiguous()
     pair_c = _pairs(u_c).contiguous()
     pair_s = _pairs(u_s).contiguous()
+    tc, ts = (twin_c.contiguous(), twin_s.contiguous()) if corrected else (None, None)
     pe = torch.empty((k_cand, horizon), dtype=torch.float32, device=x0.device)
     scratch = None
     if not state_in_shared(n_particles, rot):
@@ -181,29 +197,37 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     with torch.cuda.device(x0.device):
         err = _build.library().pct_spectral_horizon(
             x0c.data_ptr(), v0c.data_ptr(), u0c.data_ptr(), u0s.data_ptr(),
-            pair_c.data_ptr(), pair_s.data_ptr(), pe.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), params, int(rot),
+            pair_c.data_ptr(), pair_s.data_ptr(),
+            None if tc is None else tc.data_ptr(), None if ts is None else ts.data_ptr(),
+            pe.data_ptr(), None if scratch is None else scratch.data_ptr(), params, int(rot),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "spectral_horizon")
     spectral_horizon.launches += 1
+    if corrected:
+        spectral_horizon.twin_launches += 1
     return pe
 
 
-def spectral_horizon(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot):
+def spectral_horizon(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot,
+                     twin_c=None, twin_s=None):
     """(K, H) post-drift spectral-model field energies per candidate.
 
     x0, v0: (N,) shared particle state; u_c, u_s: (K, H, Km) external cosine
-    and sine coefficients, zero-padded to the model's Km modes. CPU tensors
-    take the plain version, CUDA tensors the kernel.
+    and sine coefficients, zero-padded to the model's Km modes; twin_c,
+    twin_s: (H, Km) noise-correction targets, which make the energies the
+    twin-corrected ones. CPU tensors take the plain version, CUDA tensors the
+    kernel.
     """
+    kw = dict(length=length, dt=dt, n0=n0, n_particles=n_particles, rot=rot,
+              twin_c=twin_c, twin_s=twin_s)
     if x0.is_cuda:
-        return _spectral_horizon_cuda(x0, v0, u_c, u_s, length=length, dt=dt, n0=n0,
-                                      n_particles=n_particles, rot=rot)
+        return _spectral_horizon_cuda(x0, v0, u_c, u_s, **kw)
     if x0.device.type != "cpu":
         raise RuntimeError(f"spectral_horizon: no kernel for device {x0.device}")
-    return spectral_horizon_plain(x0, v0, u_c, u_s, length=length, dt=dt, n0=n0,
-                                  n_particles=n_particles, rot=rot)
+    return spectral_horizon_plain(x0, v0, u_c, u_s, **kw)
 
 
+# launches of the kernel, and of its twin-corrected variant among them
 spectral_horizon.launches = 0
+spectral_horizon.twin_launches = 0

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of one control step goes on one NVIDIA GPU.
 
-    python3 profile_control_step.py [--slice spectral|grid] [--steps 50] [--trace PATH]
+    python3 profile_control_step.py [--slice spectral|grid|twin] [--steps 50] [--trace PATH]
 
 Runs the control step of one of ``chip_smoke.py``'s slices, the spectral
-slice or the grid-planner slice (one MPPI solve, one
+slice, the grid-planner slice or the twin slice (one MPPI solve, one
 Yoshida-4 environment step, the energies, the nominal shift: the body of
 ``mpc_rollout``) with ``record_function`` ranges around plan / env step /
 energies, after 20 warm-up steps, and prints:
@@ -22,8 +22,8 @@ energies, after 20 warm-up steps, and prints:
 3. the device idle share twice: against the traced window's own wall time
    (tracing slows the host) and against the untraced synchronised median
    of step 1, measured in the same process just before;
-4. device time per step by kernel name, and host time per step in each
-   range.
+4. device time per step by kernel name, the planner kernel's device time
+   per step and per launch, and host time per step in each range.
 
 Imports only ``plasma_control_tpu_torch`` and ``chip_smoke``'s settings.
 """
@@ -33,15 +33,23 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 
-from chip_smoke import GRID_MPC, MPC, _setup
+from chip_smoke import CFG4_MAX_MODE, CFG4_SIM, GRID_MPC, MPC, TWIN_MPC, _setup
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 RANGES = ("plan", "env_step", "energies")
+# the planner kernels' device names: kernel 1 and kernels 5-6
+PLANNER_KERNELS = ("spectral_horizon_kernel", "horizon_kernel")
+SLICES = {
+    "spectral": dict(mpc=MPC),
+    "grid": dict(mpc=GRID_MPC),
+    "twin": dict(sim=CFG4_SIM, max_mode=CFG4_MAX_MODE, mpc=TWIN_MPC),
+}
 
 
 def device_events(trace_path: str) -> list:
@@ -91,8 +99,8 @@ def _group(events: list) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--slice", choices=("spectral", "grid"), default="spectral",
-                    help="chip_smoke.py's spectral slice or its grid-planner slice")
+    ap.add_argument("--slice", choices=tuple(SLICES), default="spectral",
+                    help="chip_smoke.py's spectral, grid-planner or twin slice")
     ap.add_argument("--steps", type=int, default=50, help="control steps in the traced window")
     ap.add_argument("--trace", default="chiprun_out/control_step_trace.json",
                     help="where to write the Chrome trace")
@@ -113,7 +121,7 @@ def main() -> int:
     print(f"slice: {args.slice}", flush=True)
 
     dev = torch.device("cuda")
-    cfg, ctrl, mpc, grid, act = _setup(torch, dev, mpc=GRID_MPC if args.slice == "grid" else MPC)
+    cfg, ctrl, mpc, grid, act = _setup(torch, dev, **SLICES[args.slice])
     state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     mean = torch.zeros((mpc.horizon, 2 * ctrl.max_mode), device=dev)
@@ -158,6 +166,7 @@ def main() -> int:
             state, mean = control_step(state, mean)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
     prof.export_chrome_trace(args.trace)
 
     untraced = statistics.median(medians)
@@ -174,6 +183,11 @@ def main() -> int:
     print("device time per step by name (us; launches per step):")
     for us, n, name in s["by_name"][:20]:
         print(f"  {us:9.2f}  {n:6.2f}  {name[:110]}")
+    planner = [(us, n, name) for us, n, name in s["by_name"]
+               if any(k in name for k in PLANNER_KERNELS)]
+    for us, n, name in planner:
+        print(f"planner kernel {name[:80]}: {us / 1e3:.5f} ms device time per step, "
+              f"{us / 1e3 / n:.5f} ms per launch, {n:.2f} launches per step")
     host = collections.defaultdict(float)
     for e in prof.key_averages():
         if e.key in RANGES:

@@ -39,7 +39,7 @@ def _state(seed, shape):
 
 
 def _e_op_t(m):
-    return make_grid(m, L).e_op.T.contiguous()
+    return make_grid(m, L, device="cpu").e_op.T.contiguous()
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "kick-field"])

@@ -20,7 +20,7 @@ from plasma_control_tpu_torch.config import ControlConfig, MPCConfig, SimConfig
 from plasma_control_tpu_torch.control import mpc
 from plasma_control_tpu_torch.control.actuator import make_actuator
 from plasma_control_tpu_torch.interop import state_from_numpy
-from plasma_control_tpu_torch.ops.grid import make_grid
+from plasma_control_tpu_torch.ops.grid import cached_grid, make_grid
 
 torch.set_num_threads(1)
 
@@ -46,9 +46,10 @@ def _both(n, m, mpc_kw, sim_kw=None, amplitude=0.5, seed=0):
     j = dict(state=JPlasmaState(jnp.asarray(x), jnp.asarray(v)), grid=jmake_grid(m, L),
              cfg=JSimConfig(**sim), ctrl=JControlConfig(max_mode=KA), mpc=JMPCConfig(**mpc_kw),
              actuator=jmake_actuator(L, m, KA))
-    t = dict(state=state_from_numpy(x, v), grid=make_grid(m, L), cfg=SimConfig(**sim),
+    t = dict(state=state_from_numpy(x, v, device="cpu"), grid=make_grid(m, L, device="cpu"),
+             cfg=SimConfig(**sim),
              ctrl=ControlConfig(max_mode=KA), mpc=MPCConfig(**mpc_kw),
-             actuator=make_actuator(L, m, KA))
+             actuator=make_actuator(L, m, KA, device="cpu"))
     return j, t
 
 
@@ -224,7 +225,7 @@ def test_plan_grid_and_actuator_are_cached():
     _, t = _both(400, 32, dict(plan_mesh=16))
     cpu = torch.device("cpu")
     grid = mpc._reduced_model(t["grid"], t["cfg"], t["mpc"])[0]
-    assert grid.n_mesh == 16 and grid is mpc._grid_cache(16, L, torch.float32, cpu)
+    assert grid.n_mesh == 16 and grid is cached_grid(16, L, torch.float32, cpu)
     act = mpc._actuator_cache(L, 16, KA, torch.float32, cpu)
     assert act is mpc._actuator_cache(L, 16, KA, torch.float32, cpu)
-    np.testing.assert_array_equal(act.basis_cos.numpy(), make_actuator(L, 16, KA).basis_cos.numpy())
+    np.testing.assert_array_equal(act.basis_cos.numpy(), make_actuator(L, 16, KA, device=cpu).basis_cos.numpy())

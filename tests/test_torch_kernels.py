@@ -95,6 +95,63 @@ def test_spectral_horizon_matches_plain(dev, gen, rot, n, k, h, km):
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+@pytest.mark.parametrize("n,k,h,km", [(10_000, 1024, 10, 16), (384, 7, 4, 5), (20_000, 64, 10, 16)])
+def test_corrected_spectral_horizon_matches_plain(dev, gen, rot, n, k, h, km):
+    """The twin-corrected variant at the twin slice's plan model, a small odd
+    shape and with its state in global memory, targets of the size of the
+    mode sums (~sqrt(N)): rtol 2e-4, as for the plain energies; one launch,
+    counted as corrected."""
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
+    u_c = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    u_s = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    tc, ts = (n ** 0.5 * torch.randn((h, km), generator=gen, device=dev) for _ in range(2))
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=rot, twin_c=tc, twin_s=ts)
+    before = (sh.spectral_horizon.launches, sh.spectral_horizon.twin_launches)
+    got = sh.spectral_horizon(x0, v0, u_c, u_s, **kw)
+    assert (sh.spectral_horizon.launches, sh.spectral_horizon.twin_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, sh.spectral_horizon_plain(x0, v0, u_c, u_s, **kw),
+                               rtol=2e-4, atol=1e-6)
+
+
+def test_corrected_spectral_horizon_refuses_bad_targets(dev):
+    x = torch.zeros(64, device=dev)
+    u = torch.zeros((2, 3, 4), device=dev)
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=64, rot=True)
+    with pytest.raises(ValueError):  # one target without the other
+        sh.spectral_horizon(x, x, u, u, twin_c=torch.zeros((3, 4), device=dev), **kw)
+    with pytest.raises(ValueError):  # not (H, Km)
+        bad = torch.zeros((4, 3), device=dev)
+        sh.spectral_horizon(x, x, u, u, twin_c=bad, twin_s=bad, **kw)
+
+
+def test_twin_candidate_costs_on_card_launch_the_corrected_kernel(dev, gen):
+    """A subsampled twin-corrected plan on CUDA tensors: one corrected launch
+    per solve, the costs matching the CPU's plain version to rtol 2e-4."""
+    from plasma_control_tpu_torch.config import ControlConfig
+    from plasma_control_tpu_torch.control.mpc import _plan_model, twin_targets
+
+    st, cand, grid, cfg, act = _cost_inputs(dev, gen, 2000, k=16)
+    mpc = MPCConfig(horizon=4, n_candidates=16, plan_modes=4, plan_particles=500,
+                    plan_correction="twin", plan_kernel="fused")
+    ctrl = ControlConfig(max_mode=2)
+    costs = {}
+    for side in ("cuda", "cpu"):
+        s = st if side == "cuda" else PlasmaState(st.x.cpu(), st.v.cpu())
+        g = grid if side == "cuda" else make_grid(32, L, device="cpu")
+        a = act if side == "cuda" else make_actuator(L, 32, 2, device="cpu")
+        pst, pgrid, pcfg = _plan_model(s, g, cfg, mpc)
+        target = twin_targets(s.x, pst, pcfg, cfg, ctrl, mpc)
+        before = sh.spectral_horizon.twin_launches
+        costs[side] = candidate_costs(pst, cand.to(s.x.device), pgrid, pcfg, mpc, a,
+                                      twin_target=target).cpu()
+        assert sh.spectral_horizon.twin_launches == before + (side == "cuda")
+    torch.testing.assert_close(costs["cuda"], costs["cpu"], rtol=2e-4, atol=1e-5)
+
+
 def test_spectral_horizon_refuses_unsupported_shapes(dev):
     n = 64
     x = torch.zeros(n, device=dev)
@@ -127,8 +184,8 @@ def test_candidate_costs_on_card_always_launch_the_kernel(dev, gen, plan_kernel)
     assert sh.spectral_horizon.launches == before + 1
     cpu = PlasmaState(st.x.cpu(), st.v.cpu())
     cpu_mpc = mpc if plan_kernel == "xla" else dataclasses.replace(mpc, plan_kernel="fused")
-    ref = candidate_costs(cpu, cand.cpu(), make_grid(32, L), cfg, cpu_mpc,
-                          make_actuator(L, 32, 2))
+    ref = candidate_costs(cpu, cand.cpu(), make_grid(32, L, device="cpu"), cfg, cpu_mpc,
+                          make_actuator(L, 32, 2, device="cpu"))
     torch.testing.assert_close(got.cpu(), ref, rtol=2e-4, atol=1e-5)
 
 
@@ -153,8 +210,8 @@ def test_candidate_costs_on_card_launch_the_kernel_at_large_n(dev, gen, plan_ker
     assert sh.spectral_horizon.launches == before + 1
     cpu = PlasmaState(st.x.cpu(), st.v.cpu())
     cpu_mpc = mpc if plan_kernel == "xla" else dataclasses.replace(mpc, plan_kernel="fused")
-    ref = candidate_costs(cpu, cand.cpu(), make_grid(32, L), cfg, cpu_mpc,
-                          make_actuator(L, 32, 2))
+    ref = candidate_costs(cpu, cand.cpu(), make_grid(32, L, device="cpu"), cfg, cpu_mpc,
+                          make_actuator(L, 32, 2, device="cpu"))
     torch.testing.assert_close(got.cpu(), ref, rtol=2e-4, atol=1e-5)
 
 
@@ -250,5 +307,6 @@ def test_grid_candidate_costs_on_card_launch_the_kernels(dev, gen, plan_integrat
     added = [f.launches - b for f, b in zip(counters, before)]
     assert added == {"kdk": [1, 0, 0], "leapfrog": [0, 4, 0], "env": [0, 0, 12]}[plan_integrator]
     cpu = PlasmaState(st.x.cpu(), st.v.cpu())
-    ref = candidate_costs(cpu, cand.cpu(), make_grid(32, L), cfg, mpc, make_actuator(L, 32, 2))
+    ref = candidate_costs(cpu, cand.cpu(), make_grid(32, L, device="cpu"), cfg, mpc,
+                          make_actuator(L, 32, 2, device="cpu"))
     torch.testing.assert_close(got.cpu(), ref, rtol=2e-4, atol=1e-5)

@@ -34,7 +34,7 @@ def test_knot_noise_shape_and_unit_variance():
     """Every horizon step has unit marginal variance (the knot interpolation
     renormalizes); 4000 draws per step give a standard error of ~0.022."""
     gen = torch.Generator().manual_seed(0)
-    eps = mpc.knot_noise(gen, 4000, 7, 4, 3)
+    eps = mpc.knot_noise(gen, 4000, 7, 4, 3, device="cpu")
     assert eps.shape == (4000, 7, 4) and eps.dtype == torch.float32
     var = eps.var(dim=(0, 2))
     np.testing.assert_allclose(var.numpy(), 1.0, atol=0.07)
@@ -46,7 +46,7 @@ def test_knot_noise_shape_and_unit_variance():
 def test_draw_noise_is_antithetic():
     gen = torch.Generator().manual_seed(1)
     cfg = MPCConfig(n_candidates=9, horizon=6)
-    eps = mpc.draw_noise(gen, cfg, 6, 4)
+    eps = mpc.draw_noise(gen, cfg, 6, 4, device="cpu")
     assert eps.shape == (9, 6, 4)
     assert torch.equal(eps[5:9], -eps[:4])
 
@@ -75,9 +75,10 @@ def _both(mpc_kw, seed=0):
     jside = dict(state=JPlasmaState(jnp.asarray(x), jnp.asarray(v)), grid=jmake_grid(M, L),
                  cfg=JSimConfig(**SIM), ctrl=JControlConfig(max_mode=KA),
                  mpc=JMPCConfig(**mpc_kw), actuator=jmake_actuator(L, M, KA))
-    tside = dict(state=state_from_numpy(x, v), grid=make_grid(M, L), cfg=SimConfig(**SIM),
+    tside = dict(state=state_from_numpy(x, v, device="cpu"), grid=make_grid(M, L, device="cpu"),
+                 cfg=SimConfig(**SIM),
                  ctrl=ControlConfig(max_mode=KA), mpc=MPCConfig(**mpc_kw),
-                 actuator=make_actuator(L, M, KA))
+                 actuator=make_actuator(L, M, KA, device="cpu"))
     return jside, tside
 
 
@@ -147,11 +148,7 @@ def test_generator_draws_are_seeded():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(algo="cem"),
-    dict(plan_correction="twin", plan_particles=100),
     dict(n_grad_iters=2),
-    dict(plan_chunk=4),
-    dict(smooth_noise=0.5),
 ])
 def test_unported_settings_raise(kw):
     _, t = _both(dict(horizon=4, n_candidates=8, plan_modes=4, **kw))

@@ -32,7 +32,7 @@ def _t(a):
 def test_grid_operators_match(m, length):
     """Both sides build the operators in float64 numpy and round once to
     float32: exact equality."""
-    jg, tg = jmake_grid(m, length), tmake_grid(m, length)
+    jg, tg = jmake_grid(m, length), tmake_grid(m, length, device="cpu")
     for name in GRID_LEAVES:
         np.testing.assert_array_equal(getattr(tg, name).numpy(), np.asarray(getattr(jg, name)), name)
     assert (tg.n_mesh, tg.length, tg.dx) == (jg.n_mesh, jg.length, jg.dx)
@@ -41,7 +41,7 @@ def test_grid_operators_match(m, length):
 def test_grid_from_numpy_copies_jax_leaves():
     jg = jmake_grid(M, L)
     leaves = {name: np.asarray(jax.device_put(getattr(jg, name))) for name in GRID_LEAVES}
-    tg = grid_from_numpy(jg.n_mesh, jg.length, **leaves)
+    tg = grid_from_numpy(jg.n_mesh, jg.length, device="cpu", **leaves)
     tg.e_op.mul_(0.0)  # writable: the read-only JAX buffer was copied
     assert np.abs(np.asarray(jg.e_op)).max() > 0
 
@@ -55,9 +55,9 @@ def test_actuator_matches_and_hands_over():
 
     for endpoint in (True, False):
         ja = jmake_actuator(L, M, 4, endpoint_grid=endpoint)
-        ta = make_actuator(L, M, 4, endpoint_grid=endpoint)
+        ta = make_actuator(L, M, 4, endpoint_grid=endpoint, device="cpu")
         leaves = {name: np.asarray(getattr(ja, name)) for name in ACTUATOR_LEAVES}
-        tb = actuator_from_numpy(ja.length, ja.n_mesh, ja.max_mode, **leaves)
+        tb = actuator_from_numpy(ja.length, ja.n_mesh, ja.max_mode, device="cpu", **leaves)
         for name in ACTUATOR_LEAVES:
             np.testing.assert_array_equal(getattr(ta, name).numpy(), leaves[name])
             np.testing.assert_array_equal(getattr(tb, name).numpy(), leaves[name])
@@ -71,7 +71,7 @@ def test_actuator_matches_and_hands_over():
 
 def test_solve_and_energies_match(rng):
     """fp32 matmul over M=64 terms and fp32 sums: rtol 1e-5."""
-    jg, tg = jmake_grid(M, L), tmake_grid(M, L)
+    jg, tg = jmake_grid(M, L), tmake_grid(M, L, device="cpu")
     n = (1.0 + 0.1 * rng.standard_normal((3, M))).astype(np.float32)
     v = rng.standard_normal(500).astype(np.float32)
     je = jfields.solve_e_mesh(jnp.asarray(n), jg)
@@ -93,7 +93,7 @@ def test_deposit_matches_jax_dense(rng, kind, method):
     rtol 1e-5, atol 1e-4."""
     x = rng.uniform(-L, 2 * L, 700).astype(np.float32)  # N not a multiple of 128
     ref = jdep.deposit(jnp.asarray(x), jmake_grid(M, L), kind=kind, method="dense")
-    got = tdep.deposit(_t(x), tmake_grid(M, L), kind=kind, method=method)
+    got = tdep.deposit(_t(x), tmake_grid(M, L, device="cpu"), kind=kind, method=method)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
@@ -106,7 +106,7 @@ def test_gather_matches_jax_dense(rng, kind, method):
     x = rng.uniform(-L, 2 * L, 700).astype(np.float32)
     e = rng.standard_normal(M).astype(np.float32)
     ref = jdep.gather(jnp.asarray(e), jnp.asarray(x), jmake_grid(M, L), kind=kind, method="dense")
-    got = tdep.gather(_t(e), _t(x), tmake_grid(M, L), kind=kind, method=method)
+    got = tdep.gather(_t(e), _t(x), tmake_grid(M, L, device="cpu"), kind=kind, method=method)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
@@ -135,7 +135,7 @@ def test_cic_plain_at_the_wrap_edge():
     Pallas kernel does), the dense path divides by dx: one fp32 ulp of
     pos ~ M = 64 (7.6e-6) apart."""
     x = np.array([np.nextafter(np.float32(L), np.float32(0)), 0.0, L / M * 0.5], np.float32)
-    tg = tmake_grid(M, L)
+    tg = tmake_grid(M, L, device="cpu")
     for kind in KINDS:
         dense = tdep.deposit(_t(x), tg, kind=kind, method="dense", normalize=False)
         np.testing.assert_allclose(cic.deposit_cic(_t(x), M, L, kind).numpy(), dense.numpy(),
@@ -151,5 +151,37 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_unported_method_raises():
-    with pytest.raises(NotImplementedError):
-        tdep.deposit(torch.zeros(8), tmake_grid(M, L), method="scatter")
+    """A method that neither package has raises; "scatter" is ported."""
+    tg = tmake_grid(M, L, device="cpu")
+    for fn in (lambda: tdep.deposit(torch.zeros(8), tg, method="segment"),
+               lambda: tdep.gather(torch.zeros(M), torch.zeros(8), tg, method="segment")):
+        with pytest.raises(ValueError):
+            fn()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_scatter_matches_jax_scatter(rng, kind):
+    """The scatter path against the JAX package's: the same two or three
+    cells and weights per particle, summed with scatter_add_ (deposit) and
+    read back with gather, for batched (B, N) positions and a shared (M,)
+    field, row by row. XLA may scale by 1/dx where the port divides by dx:
+    one ulp of a cell position near M=64 (7.6e-6) moves a weight by as much,
+    so both are held to the bar of the dense tests above, rtol 1e-5 and atol
+    1e-4 (weights to atol 1e-5)."""
+    x = rng.uniform(-L, 2 * L, (3, 700)).astype(np.float32)
+    e = rng.standard_normal(M).astype(np.float32)
+    jg, tg = jmake_grid(M, L), tmake_grid(M, L, device="cpu")
+    got_n = tdep.deposit(_t(x), tg, kind=kind, method="scatter")
+    got_e = tdep.gather(_t(e), _t(x), tg, kind=kind, method="scatter")
+    assert got_n.shape == (3, M) and got_e.shape == (3, 700)
+    for row in range(3):
+        ref_n = jdep.deposit(jnp.asarray(x[row]), jg, kind=kind, method="scatter")
+        ref_e = jdep.gather(jnp.asarray(e), jnp.asarray(x[row]), jg, kind=kind, method="scatter")
+        np.testing.assert_allclose(got_n[row].numpy(), np.asarray(ref_n), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(got_e[row].numpy(), np.asarray(ref_e), rtol=1e-5, atol=1e-4)
+    cells, weights = tdep.deposit_and_gather_indices(_t(x[0]), tg, kind)
+    jcells, jweights = jdep.deposit_and_gather_indices(jnp.asarray(x[0]), jg, kind)
+    for a, b in zip(cells, jcells):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for a, b in zip(weights, jweights):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)

@@ -44,11 +44,11 @@ def test_step_and_energies_match(rng, method, kind, integrator):
     x, v = _state(tcfg, rng)
     coeffs = (0.3 * rng.standard_normal(6)).astype(np.float32)
     jgrid, jact = jmake_grid(48, 50.0), jmake_actuator(50.0, 48, 3)
-    tgrid, tact = make_grid(48, 50.0), make_actuator(50.0, 48, 3)
+    tgrid, tact = make_grid(48, 50.0, device="cpu"), make_actuator(50.0, 48, 3, device="cpu")
 
     jnew = jpic.step(jpic.PlasmaState(jnp.asarray(x), jnp.asarray(v)), jgrid, jcfg,
                      jact.compute_e_packed(jnp.asarray(coeffs)))
-    tnew = pic.step(state_from_numpy(x, v), tgrid, tcfg,
+    tnew = pic.step(state_from_numpy(x, v, device="cpu"), tgrid, tcfg,
                     tact.compute_e_packed(torch.tensor(coeffs)))
     np.testing.assert_allclose(tnew.x.numpy(), np.asarray(jnew.x), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tnew.v.numpy(), np.asarray(jnew.v), rtol=1e-5, atol=1e-5)
@@ -67,7 +67,8 @@ def test_uncontrolled_rollout_matches(rng):
     x, v = _state(tcfg, rng)
     jout = jroll.rollout(jpic.PlasmaState(jnp.asarray(x), jnp.asarray(v)),
                          jmake_grid(48, 50.0), jcfg, n_steps=10)
-    tout = rollout.rollout(state_from_numpy(x, v), make_grid(48, 50.0), tcfg, n_steps=10)
+    tout = rollout.rollout(state_from_numpy(x, v, device="cpu"), make_grid(48, 50.0, device="cpu"),
+                           tcfg, n_steps=10)
     assert tout.field_energy.shape == (11,)
     np.testing.assert_allclose(tout.field_energy.numpy(), np.asarray(jout.field_energy),
                                rtol=1e-3, atol=1e-4)
@@ -80,7 +81,7 @@ def test_initial_state_moments_match(simcase):
     tolerances are ~5 standard errors of each statistic."""
     kw = dict(simcase=simcase, n_particles=20000, n_mesh=64, length=50.0)
     tcfg, jcfg = SimConfig(**kw), JSimConfig(**kw)
-    tx, tv = (a.numpy() for a in pic.init_state(tcfg, torch.Generator().manual_seed(0)))
+    tx, tv = (a.numpy() for a in pic.init_state(tcfg, torch.Generator().manual_seed(0), device="cpu"))
     jst = jpic.init_state(jcfg, jax.random.PRNGKey(0))
     jx, jv = np.asarray(jst.x), np.asarray(jst.v)
     n = tcfg.n_particles
@@ -103,8 +104,8 @@ def test_initial_state_moments_match(simcase):
 
 def test_init_state_is_seeded():
     cfg = SimConfig(**BASE)
-    a = pic.init_state(cfg, torch.Generator().manual_seed(3))
-    b = pic.init_state(cfg, torch.Generator().manual_seed(3))
+    a = pic.init_state(cfg, torch.Generator().manual_seed(3), device="cpu")
+    b = pic.init_state(cfg, torch.Generator().manual_seed(3), device="cpu")
     assert torch.equal(a.x, b.x) and torch.equal(a.v, b.v)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(JSimConfig(**BASE))
 
@@ -116,6 +117,47 @@ def test_diagnostics_match(rng):
     tcfg, jcfg = SimConfig(**kw), JSimConfig(**kw)
     x, v = _state(tcfg, rng)
     jout = jpic.diagnostics(jpic.PlasmaState(jnp.asarray(x), jnp.asarray(v)), jmake_grid(48, 50.0), jcfg)
-    tout = pic.diagnostics(state_from_numpy(x, v), make_grid(48, 50.0), tcfg)
+    tout = pic.diagnostics(state_from_numpy(x, v, device="cpu"),
+                           make_grid(48, 50.0, device="cpu"), tcfg)
     for name, a, b in zip(("n", "e_mesh", "pe", "ke", "h"), tout, jout):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-4, err_msg=name)
+
+
+def test_rollout_snapshots_match_jax(rng):
+    """Five recorded steps through the CIC kernel path: the (T+1, N) xs, vs
+    and the packed (2N, T+1) snapshot agree with the JAX package's to the
+    tolerance of one step above, compounded (atol 1e-4)."""
+    kw = dict(BASE, deposit_method="pallas")
+    tcfg, jcfg = SimConfig(**kw), JSimConfig(**kw)
+    x, v = _state(tcfg, rng)
+    e_ext = (0.05 * rng.standard_normal((5, 48))).astype(np.float32)
+    jout = jroll.rollout(jpic.PlasmaState(jnp.asarray(x), jnp.asarray(v)), jmake_grid(48, 50.0),
+                         jcfg, e_external_traj=jnp.asarray(e_ext), record_snapshots=True, n_steps=5)
+    tout = rollout.rollout(state_from_numpy(x, v, device="cpu"), make_grid(48, 50.0, device="cpu"),
+                           tcfg, e_external_traj=torch.tensor(e_ext), record_snapshots=True,
+                           n_steps=5)
+    assert tout.xs.shape == tout.vs.shape == (6, 512)
+    np.testing.assert_array_equal(tout.xs[0].numpy(), x)
+    snap = rollout.snapshot_from_rollout(tout)
+    jsnap = jroll.snapshot_from_rollout(jout)
+    assert snap.shape == (1024, 6)
+    np.testing.assert_allclose(snap.numpy(), np.asarray(jsnap), rtol=1e-5, atol=1e-4)
+    plain = rollout.rollout(state_from_numpy(x, v, device="cpu"), make_grid(48, 50.0, device="cpu"),
+                            tcfg, n_steps=1)
+    assert plain.xs is None and plain.vs is None
+    with pytest.raises(ValueError):
+        rollout.snapshot_from_rollout(plain)
+
+
+@pytest.mark.parametrize("simcase", ["bump-on-tail", "two-stream", "landau"])
+def test_high_indices_match_jax(simcase):
+    """The beam particles' indices: [N1, N) for bump-on-tail, none
+    otherwise."""
+    from plasma_control_tpu.models.distributions import make_distribution as jmake
+    from plasma_control_tpu_torch.models.distributions import make_distribution
+
+    kw = dict(BASE, simcase=simcase, n_particles=1000)
+    got = make_distribution(SimConfig(**kw)).high_indices()
+    ref = np.asarray(jmake(JSimConfig(**kw)).high_indices())
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (got.numel() > 0) == (simcase == "bump-on-tail")

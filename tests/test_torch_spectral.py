@@ -72,9 +72,9 @@ def _setup(n, ka, **mpc_kw):
     x = r.uniform(0, L, n).astype(np.float32)
     v = (r.standard_normal(n) * 1.5).astype(np.float32)
     jst = JPlasmaState(jnp.asarray(x), jnp.asarray(v))
-    tst = state_from_numpy(x, v)
+    tst = state_from_numpy(x, v, device="cpu")
     jside = (jst, jmake_grid(32, L), jcfg, jmake_actuator(L, 32, ka))
-    tside = (tst, make_grid(32, L), tcfg, make_actuator(L, 32, ka))
+    tside = (tst, make_grid(32, L, device="cpu"), tcfg, make_actuator(L, 32, ka, device="cpu"))
     return jside, tside
 
 
