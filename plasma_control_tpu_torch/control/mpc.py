@@ -626,8 +626,7 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator, twin_target=Non
     drift = "trig" if mpc.plan_kernel == "xla" else mpc.spectral_drift
     tc, ts = (None, None) if twin_target is None else twin_target
     pe = spectral_horizon(
-        state.x, state.v,
-        _pad_modes(coeff_seqs[..., :ka], km), _pad_modes(coeff_seqs[..., ka:], km),
+        state.x, state.v, coeff_seqs[..., :ka], coeff_seqs[..., ka:], n_modes=km,
         length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, n_particles=cfg.n_particles,
         rot=use_rot(cfg.clamped_dt(), cfg.length, drift), twin_c=tc, twin_s=ts,
     )  # (K, H) post-drift spectral-model PE, corrected with a target

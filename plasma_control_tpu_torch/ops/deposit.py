@@ -147,11 +147,11 @@ def gather(
     """Interpolate a (..., M) mesh field to (..., N) positions with the same
     weights as :func:`deposit`."""
     _check_method(method)
-    xw = torch.remainder(x, grid.length)
     if method == "pallas":
         from .kernels.cic import gather_cic
 
-        return gather_cic(field_mesh, xw, grid.n_mesh, grid.length, kind=kind)
+        # the kernel wraps the positions itself, as torch.remainder does
+        return gather_cic(field_mesh, x, grid.n_mesh, grid.length, kind=kind)
     if method == "scatter":
         idxs, ws = deposit_and_gather_indices(x, grid, kind)
         batch = torch.broadcast_shapes(field_mesh.shape[:-1], x.shape[:-1])
@@ -160,5 +160,5 @@ def gather(
         for idx, w in zip(idxs, ws):
             out = out + w * torch.gather(field, -1, idx.expand(*batch, x.shape[-1]))
         return out
-    w = shape_weights_dense(xw, grid, kind)
+    w = shape_weights_dense(torch.remainder(x, grid.length), grid, kind)
     return (w @ field_mesh[..., :, None])[..., 0]

@@ -11,7 +11,10 @@ halves the build: 5.2-5.5 s against 10.6-11.0 s for one ``nvcc`` over all
 of them (NVIDIA H100 80GB HBM3 machine, 8 cores).
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` turns a nonzero code into an exception.
+``cudaGetLastError()``; :func:`call` passes it PyTorch's current stream as a
+raw handle (no ``torch.cuda.Stream`` object), sets the device only when the
+tensors lie on another device than the current one, and turns a nonzero code
+into an exception (:func:`check`).
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["SpectralParams", "GridParams", "MAX_MODES", "SHARED_BYTES", "build", "library",
-           "check"]
+import torch
+
+__all__ = ["SpectralParams", "GridParams", "MAX_MODES", "MAX_CLUSTER", "SHARED_BYTES", "build",
+           "library", "call", "check"]
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 SOURCE_DIR = _PACKAGE / "csrc"
@@ -38,8 +43,9 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # per-kernel registers, shared memory and spills in the build log
 )
 
-MAX_MODES = 16  # kMaxModes of csrc/spectral_horizon.cu
-SHARED_BYTES = 232448  # dynamic shared memory one CTA may use on Hopper
+MAX_MODES = 16  # kMaxModes of csrc/spectral_horizon.cuh
+MAX_CLUSTER = 16  # kMaxCluster of csrc/spectral_horizon.cuh: Hopper's largest (non-portable) cluster
+SHARED_BYTES = 232448  # shared memory one CTA may use on Hopper
 
 
 class SpectralParams(ctypes.Structure):
@@ -51,6 +57,11 @@ class SpectralParams(ctypes.Structure):
         ("h", ctypes.c_int),
         ("km", ctypes.c_int),
         ("n", ctypes.c_int),
+        ("ka", ctypes.c_int),
+        ("u_sk", ctypes.c_int),
+        ("u_sh", ctypes.c_int),
+        ("x_st", ctypes.c_int),
+        ("cluster", ctypes.c_int),
         ("dt", ctypes.c_float),
         ("half_dt", ctypes.c_float),
         ("length", ctypes.c_float),
@@ -86,10 +97,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, out, b, n, m, inv_dx, kind, stream
     "pct_cic_deposit": [_P, _P, _I, _I, _I, _F, _I, _P],
-    # e, x, out, b, n, m, inv_dx, kind, stream
-    "pct_cic_gather": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
-    # x0, v0, u0c, u0s, pair_c, pair_s, tc, ts, pe, scratch, params, rot, stream
-    "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _P],
+    # e, x, out, b, n, m, e_stride, length, inv_dx, kind, stream
+    "pct_cic_gather": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    # x0, v0, uc, us, tc, ts, pe, scratch, params, rot, stream
+    "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _P],
+    # params, rot, global, corrected, out max_clusters
+    "pct_spectral_max_clusters": [SpectralParams, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     # x, v, e_ext, eop_t, xo, vo, eo, b, params, exact, eop_smem, state_smem, stream
     "pct_fused_leapfrog_step": [_P, _P, _P, _P, _P, _P, _P, _I, GridParams, _I, _I, _I, _P],
     # x0, v0, u, eop_t, pe, scratch, k, params, merged, eop_smem, stream
@@ -184,3 +197,16 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().pct_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def call(name: str, index: int, *args) -> None:
+    """Run the C entry point ``name`` with ``args`` and the raw handle of
+    PyTorch's current stream on CUDA device ``index``; a device guard only
+    when that device is not the current one. Raises on a CUDA error."""
+    fn = getattr(library(), name)
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(err, name)

@@ -10,7 +10,9 @@ bounds the kernels on the H100 and how they are laid out.
 
 A wrapper runs the plain version for a CPU tensor and the kernel for a CUDA
 tensor (float32, any leading batch shape); any other device raises. Each
-kernel launch adds one to the wrapper's ``launches`` count.
+kernel launch adds one to the wrapper's ``launches`` count. The deposit takes
+positions in [0, L); the gather takes any positions and wraps them as
+``torch.remainder(x, L)`` does, in its kernel and in its plain version alike.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ __all__ = ["deposit_cic", "gather_cic", "deposit_cic_plain", "gather_cic_plain"]
 
 _KIND_ID = {"cic": 0, "tsc": 1, "tsc_standard": 2}
 _MAX_BATCH = 65535  # gridDim.y
+_MAX_GATHER_MESH = 12288  # the gather stages a field row in 48 KB of shared memory
+_F32 = torch.float32
 
 
 def _taps(x: torch.Tensor, n_mesh: int, length: float, kind: str):
@@ -45,8 +49,9 @@ def deposit_cic_plain(x: torch.Tensor, n_mesh: int, length: float, kind: str = "
 def gather_cic_plain(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int, length: float,
                      kind: str = "cic") -> torch.Tensor:
     """Plain version of the gather kernel: the (..., M) mesh field
-    interpolated to (..., N) positions in [0, L) with the same weights."""
-    idx, w = _taps(x, n_mesh, length, kind)
+    interpolated to (..., N) positions, wrapped to [0, L) first, with the
+    same weights."""
+    idx, w = _taps(torch.remainder(x, length), n_mesh, length, kind)
     e = e_mesh.expand(x.shape[:-1] + (n_mesh,))
     taps = torch.take_along_dim(e, idx.flatten(-2), dim=-1).view(idx.shape)
     return (w * taps).sum(-1)
@@ -77,13 +82,8 @@ def deposit_cic(x: torch.Tensor, n_mesh: int, length: float, kind: str = "cic") 
         raise ValueError(f"deposit_cic: batch {b} or mesh {n_mesh} beyond the kernel's limits")
     out = torch.zeros((b, n_mesh), dtype=torch.float32, device=x.device)
     if n > 0:
-        with torch.cuda.device(x.device):
-            err = _build.library().pct_cic_deposit(
-                rows.data_ptr(), out.data_ptr(), b, n, n_mesh,
-                1.0 / (length / n_mesh), _KIND_ID[kind],
-                torch.cuda.current_stream().cuda_stream,
-            )
-        _build.check(err, "deposit_cic")
+        _build.call("pct_cic_deposit", x.get_device(), rows.data_ptr(), out.data_ptr(), b, n,
+                    n_mesh, 1.0 / (length / n_mesh), _KIND_ID[kind])
         deposit_cic.launches += 1
     return out.reshape(x.shape[:-1] + (n_mesh,))
 
@@ -91,30 +91,52 @@ def deposit_cic(x: torch.Tensor, n_mesh: int, length: float, kind: str = "cic") 
 deposit_cic.launches = 0
 
 
+def _gather_layout(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int):
+    """Check the gather's CUDA inputs and bring them to the kernel's layout:
+    contiguous float32 positions and a contiguous field of one (M,) row or
+    one row per row of ``x``, on one device."""
+    if x.dtype != torch.float32 or e_mesh.dtype != torch.float32 or e_mesh.device != x.device:
+        raise TypeError("gather_cic: the CUDA kernel takes float32 tensors on one device")
+    if e_mesh.shape[-1] != n_mesh or n_mesh > _MAX_GATHER_MESH:
+        raise ValueError(f"gather_cic: field of {e_mesh.shape[-1]} cells for a {n_mesh}-cell "
+                         f"mesh (the kernel takes at most {_MAX_GATHER_MESH})")
+    if e_mesh.numel() == n_mesh:
+        e_mesh = e_mesh.reshape(n_mesh)
+    else:
+        e_mesh = e_mesh.expand(x.shape[:-1] + (n_mesh,))
+    return e_mesh.contiguous(), x.contiguous()
+
+
 def gather_cic(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int, length: float,
                kind: str = "cic") -> torch.Tensor:
-    """(..., M) mesh field at (..., N) positions wrapped to [0, L): (..., N).
-    A single (M,) field is shared by every batch row of ``x``."""
-    if not _check_device(x, "gather_cic"):
+    """(..., M) mesh field at (..., N) positions, wrapped to [0, L) as
+    ``torch.remainder`` wraps them: (..., N). A single (M,) field is shared
+    by every batch row of ``x``.
+
+    On the card this is one launch and one allocation: the kernel wraps the
+    positions, reads a shared (M,) field at row stride 0 and a batched one in
+    place, and :func:`_build.call` sets no device guard when ``x`` lies on
+    the current device. Inputs in another layout are made contiguous first."""
+    index = x.get_device()
+    if index < 0:
+        _check_device(x, "gather_cic")
         return gather_cic_plain(e_mesh, x, n_mesh, length, kind)
-    rows = _as_rows(x, "gather_cic")
-    b, n = rows.shape
-    if b > _MAX_BATCH:
-        raise ValueError(f"gather_cic: batch {b} beyond the kernel's limit {_MAX_BATCH}")
-    e_rows = _as_rows(e_mesh.expand(x.shape[:-1] + (n_mesh,)), "gather_cic")
-    if e_rows.device != x.device:
-        raise RuntimeError("gather_cic: field and positions lie on different devices")
-    out = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    if n > 0:
-        with torch.cuda.device(x.device):
-            err = _build.library().pct_cic_gather(
-                e_rows.data_ptr(), rows.data_ptr(), out.data_ptr(), b, n, n_mesh,
-                1.0 / (length / n_mesh), _KIND_ID[kind],
-                torch.cuda.current_stream().cuda_stream,
-            )
-        _build.check(err, "gather_cic")
+    one_row = e_mesh.dim() == 1
+    if not (x.dtype is _F32 and e_mesh.dtype is _F32 and e_mesh.get_device() == index
+            and x.is_contiguous() and e_mesh.is_contiguous() and e_mesh.shape[-1] == n_mesh
+            and n_mesh <= _MAX_GATHER_MESH and (one_row or e_mesh.shape[:-1] == x.shape[:-1])):
+        return gather_cic(*_gather_layout(e_mesh, x, n_mesh), n_mesh, length, kind)
+    out = torch.empty_like(x)
+    n = x.shape[-1]
+    if n:
+        b = x.numel() // n
+        if b > _MAX_BATCH:
+            raise ValueError(f"gather_cic: batch {b} beyond the kernel's limit {_MAX_BATCH}")
+        _build.call("pct_cic_gather", index, e_mesh.data_ptr(), x.data_ptr(), out.data_ptr(), b, n,
+                    n_mesh, 0 if one_row else n_mesh, length, 1.0 / (length / n_mesh),
+                    _KIND_ID[kind])
         gather_cic.launches += 1
-    return out.reshape(x.shape)
+    return out
 
 
 gather_cic.launches = 0

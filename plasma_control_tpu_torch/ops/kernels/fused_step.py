@@ -147,14 +147,11 @@ def fused_leapfrog_step(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0=1.0, exac
     xo, vo = torch.empty_like(xr), torch.empty_like(vr)
     eo = torch.empty((b, n_mesh), dtype=torch.float32, device=x.device)
     state_smem, eop_smem = _layout(n, n_mesh, "fused_leapfrog_step")
-    with torch.cuda.device(x.device):
-        err = _build.library().pct_fused_leapfrog_step(
-            xr.data_ptr(), vr.data_ptr(), er.data_ptr(), eop.data_ptr(),
-            xo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b,
-            _params(n, n_mesh, 1, kind, length, dt, n0), int(exact), int(eop_smem),
-            int(state_smem), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "fused_leapfrog_step")
+    _build.call("pct_fused_leapfrog_step", x.get_device(),
+                xr.data_ptr(), vr.data_ptr(), er.data_ptr(), eop.data_ptr(),
+                xo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b,
+                _params(n, n_mesh, 1, kind, length, dt, n0), int(exact), int(eop_smem),
+                int(state_smem))
     fused_leapfrog_step.launches += 1
     return xo.reshape(x.shape), vo.reshape(x.shape), eo.reshape(lead + (n_mesh,))
 
@@ -172,14 +169,10 @@ def _horizon_cuda(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0, kind, mer
     scratch = None if state_smem else torch.empty((k, 2 * n), dtype=torch.float32,
                                                   device=x.device)
     pe = torch.empty((k, h), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _build.library().pct_grid_horizon(
-            xc.data_ptr(), vc.data_ptr(), uc.data_ptr(), eop.data_ptr(), pe.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), k,
-            _params(n, m, h, kind, length, dt, n0), int(merged), int(eop_smem),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, what)
+    _build.call("pct_grid_horizon", x.get_device(),
+                xc.data_ptr(), vc.data_ptr(), uc.data_ptr(), eop.data_ptr(), pe.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), k,
+                _params(n, m, h, kind, length, dt, n0), int(merged), int(eop_smem))
     return pe
 
 

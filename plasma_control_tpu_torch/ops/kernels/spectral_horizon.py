@@ -19,19 +19,28 @@ TPU kernel's twin-corrected energies
 ``n0^2/N * sum_m ((c_m - tc)^2 + (s_m - ts)^2) / k_m^2`` (the kernel's
 ``CORRECTED`` template variant).
 
-Every N runs on the card: where a candidate's state does not fit one CTA's
-shared memory, the wrapper allocates a global scratch for it and the same
-kernel body keeps the state there.
+On the card each candidate runs on a thread-block cluster of C CTAs, each
+holding a slice of the particle state in shared memory;
+:func:`launch_geometry` chooses C from N and the drift. Where even the largest
+cluster cannot hold the state, it lives in a global scratch that the wrapper
+allocates, so every N runs.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 __all__ = [
+    "Geometry",
+    "launch_geometry",
     "spectral_horizon",
     "spectral_horizon_plain",
     "spectral_horizon_supported",
@@ -39,9 +48,13 @@ __all__ = [
     "use_rot",
 ]
 
-# shared memory left for the particle state beside the kernel's 1.25 KB of
-# reduction scratch
-_STATE_BYTES = _build.SHARED_BYTES - 1280
+# shared memory left for a CTA's slice of the particle state beside the
+# kernel's reduction scratch (sizeof(Reduction) in the source)
+_STATE_BYTES = _build.SHARED_BYTES - 1408
+# a slice of at most 64 KiB leaves room for three CTAs per SM, the rot
+# kernel's register budget; a sweep on the H100 found the smallest such
+# cluster fastest at every main-path shape (PERF.md §6)
+_SLICE_BYTES = 64 * 1024
 _V_SAFE = 25.0  # velocity bound of the rot drift's static angle gate
 
 
@@ -66,11 +79,37 @@ def _state_floats(rot: bool) -> int:
     return 3 if rot else 4
 
 
+class Geometry(NamedTuple):
+    """Launch geometry of one candidate: a cluster of ``cluster`` CTAs, CTA r
+    holding particles [r * slice, min((r + 1) * slice, N)) in
+    ``shared_bytes`` of dynamic shared memory; 0 shared bytes: the slices
+    live in a global scratch."""
+
+    cluster: int
+    slice: int
+    shared_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(n_particles: int, rot: bool) -> Geometry:
+    """The smallest power-of-two cluster whose CTAs each hold at most 64 KiB
+    of state, at most MAX_CLUSTER CTAs; a cluster of MAX_CLUSTER whose slices
+    exceed one CTA's shared memory keeps them in global memory. More CTAs
+    per candidate add a cluster barrier's wait per step for each CTA's
+    smaller share of the particles."""
+    per = 4 * _state_floats(rot)
+    c = 1
+    while c < _build.MAX_CLUSTER and per * -(-n_particles // c) > _SLICE_BYTES:
+        c *= 2
+    s = -(-n_particles // c)
+    return Geometry(c, s, per * s if per * s <= _STATE_BYTES else 0)
+
+
 def state_in_shared(n_particles: int, rot: bool) -> bool:
-    """True if one candidate's particle state fits one CTA's shared memory
-    (N <= 19264 for rot, 14448 for trig); otherwise it lives in a global
-    scratch."""
-    return 4 * _state_floats(rot) * n_particles <= _STATE_BYTES
+    """True if the candidate's particle state fits the shared memory of its
+    cluster (N <= 308048 for rot, 231040 for trig); otherwise it lives in a
+    global scratch."""
+    return launch_geometry(n_particles, rot).shared_bytes > 0
 
 
 def _constants(km: int, length: float, n0: float, n_particles: int):
@@ -87,9 +126,13 @@ def _pairs(u: torch.Tensor) -> torch.Tensor:
 
 
 def spectral_horizon_plain(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot,
-                           twin_c=None, twin_s=None):
-    """Plain version: x0, v0 (N,); u_c, u_s (K, H, Km); twin_c, twin_s
-    (H, Km) or None -> (K, H) float32."""
+                           twin_c=None, twin_s=None, n_modes=None):
+    """Plain version: x0, v0 (N,); u_c, u_s (K, H, Ka), zero-padded to
+    ``n_modes`` (default Ka) modes; twin_c, twin_s (H, Km) or None -> (K, H)
+    float32."""
+    if n_modes is not None:
+        u_c = F.pad(u_c, (0, n_modes - u_c.shape[-1]))
+        u_s = F.pad(u_s, (0, n_modes - u_s.shape[-1]))
     k_cand, horizon, km = u_c.shape
     g, inv_k2, pe_scale = _constants(km, length, n0, n_particles)
     g, inv_k2 = [float(v) for v in g], [float(v) for v in inv_k2]
@@ -157,13 +200,40 @@ def spectral_horizon_plain(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     return torch.cat(pes, dim=1)
 
 
-def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot,
-                           twin_c, twin_s):
-    k_cand, horizon, km = u_c.shape
-    if not spectral_horizon_supported(n_particles, km):
+@functools.lru_cache(maxsize=256)
+def _params(k, h, km, n, ka, u_sk, u_sh, x_st, cluster, length, dt, n0, rot, in_global,
+            corrected):
+    """The kernel's parameter block, built once per shape and model, after
+    checking that at least one cluster of the launch fits the card
+    (cudaOccupancyMaxActiveClusters); raises if none does."""
+    g, inv_k2, pe_scale = _constants(km, length, n0, n)
+    params = _build.SpectralParams(
+        k=k, h=h, km=km, n=n, ka=ka, u_sk=u_sk, u_sh=u_sh, x_st=x_st, cluster=cluster,
+        dt=dt, half_dt=0.5 * dt, length=length, inv_l=1.0 / length,
+        c_ang=2.0 * np.pi / length, c_ang_dt=(2.0 * np.pi / length) * dt, pe_scale=pe_scale,
+    )
+    params.g[:km] = [float(v) for v in g]
+    params.inv_k2[:km] = [float(v) for v in inv_k2]
+    fits = ctypes.c_int(0)
+    err = _build.library().pct_spectral_max_clusters(params, int(rot), int(in_global),
+                                                     int(corrected), ctypes.byref(fits))
+    _build.check(err, "spectral_horizon")
+    if fits.value < 1:
+        raise RuntimeError(f"spectral_horizon: no cluster of {cluster} CTAs fits the card "
+                           f"(N={n}, {'rot' if rot else 'trig'})")
+    return params
+
+
+def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot, twin_c,
+                           twin_s, n_modes, geometry=None):
+    """The kernel launch. ``geometry`` overrides :func:`launch_geometry`
+    (tests force a cluster size or the global scratch with it)."""
+    k_cand, horizon, ka = u_c.shape
+    km = ka if n_modes is None else n_modes
+    if not spectral_horizon_supported(n_particles, km) or ka > km:
         raise ValueError(
-            f"spectral_horizon: Km={km} modes (N={n_particles}) beyond the kernel's "
-            f"limit Km <= {_build.MAX_MODES}"
+            f"spectral_horizon: Ka={ka} drive modes padded to Km={km} (N={n_particles}): the "
+            f"kernel takes Ka <= Km <= {_build.MAX_MODES}"
         )
     corrected = twin_c is not None
     if corrected != (twin_s is not None):
@@ -172,37 +242,33 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     if any(t.dtype != torch.float32 or t.device != x0.device for t in tensors):
         raise TypeError("spectral_horizon: the CUDA kernel takes float32 tensors on one device")
     if x0.shape != (n_particles,) or v0.shape != (n_particles,) or u_s.shape != u_c.shape:
-        raise ValueError("spectral_horizon: x0, v0 must be (N,) and u_c, u_s (K, H, Km)")
+        raise ValueError("spectral_horizon: x0, v0 must be (N,) and u_c, u_s (K, H, Ka)")
     if corrected and not twin_c.shape == twin_s.shape == (horizon, km):
         raise ValueError("spectral_horizon: twin_c, twin_s must be (H, Km)")
-    g, inv_k2, pe_scale = _constants(km, length, n0, n_particles)
-    params = _build.SpectralParams(
-        k=k_cand, h=horizon, km=km, n=n_particles,
-        dt=dt, half_dt=0.5 * dt, length=length, inv_l=1.0 / length,
-        c_ang=2.0 * np.pi / length, c_ang_dt=(2.0 * np.pi / length) * dt,
-        pe_scale=pe_scale,
-    )
-    params.g[:km] = [float(v) for v in g]
-    params.inv_k2[:km] = [float(v) for v in inv_k2]
-    x0c, v0c = x0.contiguous(), v0.contiguous()
-    u0c, u0s = u_c[:, 0].contiguous(), u_s[:, 0].contiguous()
-    pair_c = _pairs(u_c).contiguous()
-    pair_s = _pairs(u_s).contiguous()
-    tc, ts = (twin_c.contiguous(), twin_s.contiguous()) if corrected else (None, None)
+    # strided views are read in place: x0, v0 at one stride, the drive with
+    # unit mode stride and the same strides for u_c and u_s
+    if x0.stride() != v0.stride() or x0.stride(0) < 1:
+        x0, v0 = x0.contiguous(), v0.contiguous()
+    if u_c.stride() != u_s.stride() or u_c.stride(-1) != 1:
+        u_c, u_s = u_c.contiguous(), u_s.contiguous()
+    if corrected:
+        twin_c, twin_s = twin_c.contiguous(), twin_s.contiguous()
+    geo = launch_geometry(n_particles, rot) if geometry is None else geometry
+    in_global = geo.shared_bytes == 0
+    params = _params(k_cand, horizon, km, n_particles, ka, u_c.stride(0), u_c.stride(1),
+                     x0.stride(0), geo.cluster, float(length), float(dt), float(n0), bool(rot),
+                     in_global, corrected)
     pe = torch.empty((k_cand, horizon), dtype=torch.float32, device=x0.device)
     scratch = None
-    if not state_in_shared(n_particles, rot):
-        scratch = torch.empty((k_cand, _state_floats(rot) * n_particles),
+    if in_global:
+        scratch = torch.empty((k_cand * geo.cluster, _state_floats(rot) * geo.slice),
                               dtype=torch.float32, device=x0.device)
-    with torch.cuda.device(x0.device):
-        err = _build.library().pct_spectral_horizon(
-            x0c.data_ptr(), v0c.data_ptr(), u0c.data_ptr(), u0s.data_ptr(),
-            pair_c.data_ptr(), pair_s.data_ptr(),
-            None if tc is None else tc.data_ptr(), None if ts is None else ts.data_ptr(),
-            pe.data_ptr(), None if scratch is None else scratch.data_ptr(), params, int(rot),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "spectral_horizon")
+    _build.call(
+        "pct_spectral_horizon", x0.get_device(),
+        x0.data_ptr(), v0.data_ptr(), u_c.data_ptr(), u_s.data_ptr(),
+        twin_c.data_ptr() if corrected else None, twin_s.data_ptr() if corrected else None,
+        pe.data_ptr(), None if scratch is None else scratch.data_ptr(), params, int(rot),
+    )
     spectral_horizon.launches += 1
     if corrected:
         spectral_horizon.twin_launches += 1
@@ -210,17 +276,18 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
 
 
 def spectral_horizon(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot,
-                     twin_c=None, twin_s=None):
+                     twin_c=None, twin_s=None, n_modes=None):
     """(K, H) post-drift spectral-model field energies per candidate.
 
-    x0, v0: (N,) shared particle state; u_c, u_s: (K, H, Km) external cosine
-    and sine coefficients, zero-padded to the model's Km modes; twin_c,
-    twin_s: (H, Km) noise-correction targets, which make the energies the
-    twin-corrected ones. CPU tensors take the plain version, CUDA tensors the
-    kernel.
+    x0, v0: (N,) shared particle state; u_c, u_s: (K, H, Ka) external cosine
+    and sine coefficients, zero-padded to the model's ``n_modes`` = Km modes
+    (default Ka; the kernel pads in place, so views of one candidate tensor
+    are read as they are); twin_c, twin_s: (H, Km) noise-correction targets,
+    which make the energies the twin-corrected ones. CPU tensors take the
+    plain version, CUDA tensors the kernel.
     """
     kw = dict(length=length, dt=dt, n0=n0, n_particles=n_particles, rot=rot,
-              twin_c=twin_c, twin_s=twin_s)
+              twin_c=twin_c, twin_s=twin_s, n_modes=n_modes)
     if x0.is_cuda:
         return _spectral_horizon_cuda(x0, v0, u_c, u_s, **kw)
     if x0.device.type != "cpu":

@@ -8,6 +8,7 @@ them there with
 """
 
 import dataclasses
+import json
 
 import pytest
 import torch
@@ -16,6 +17,7 @@ from plasma_control_tpu_torch.config import MPCConfig, SimConfig
 from plasma_control_tpu_torch.control.actuator import make_actuator
 from plasma_control_tpu_torch.control.mpc import candidate_costs
 from plasma_control_tpu_torch.models.pic import PlasmaState
+from plasma_control_tpu_torch.ops import deposit as dep
 from plasma_control_tpu_torch.ops.grid import make_grid
 from plasma_control_tpu_torch.ops.kernels import cic
 from plasma_control_tpu_torch.ops.kernels import fused_step as fs
@@ -67,6 +69,57 @@ def test_gather_matches_plain(dev, gen, kind, b):
     torch.testing.assert_close(shared, cic.gather_cic_plain(e[0], x, M, L, kind), rtol=0.0, atol=1e-5)
 
 
+def _device_ops(fn, tmp_path):
+    """Names of the device kernels, copies and sets that one call of ``fn``
+    puts on the card, from a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [e["name"] for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("ph") == "X"]
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("kind", KINDS)
+def test_gather_shared_field_and_unwrapped_positions(dev, gen, kind, b):
+    """Positions in [-L, 2L) and one (M,) field read at row stride 0: the
+    kernel wraps as torch.remainder does, atol 1e-5 against the plain
+    version, and deposit.gather(method="pallas") agrees with the dense
+    method to the dense tests' bar (rtol 1e-5, atol 1e-4)."""
+    x = torch.rand((b, N), generator=gen, device=dev) * (3 * L) - L
+    e = torch.randn(M, generator=gen, device=dev)
+    before = cic.gather_cic.launches
+    got = cic.gather_cic(e, x, M, L, kind)
+    assert cic.gather_cic.launches == before + 1
+    torch.testing.assert_close(got, cic.gather_cic_plain(e, x, M, L, kind), rtol=0.0, atol=1e-5)
+    # a (1, M) field and a strided field take the layout path to the same launch
+    assert torch.equal(cic.gather_cic(e[None], x, M, L, kind), got)
+    e2 = torch.stack([e, e], dim=-1)[:, 0]
+    assert not e2.is_contiguous() and torch.equal(cic.gather_cic(e2, x, M, L, kind), got)
+    grid = make_grid(M, L, device=dev)
+    torch.testing.assert_close(dep.gather(e, x, grid, kind=kind, method="pallas"),
+                               dep.gather(e, x, grid, kind=kind, method="dense"),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_gather_is_one_device_op(dev, gen, tmp_path):
+    """The env path's gather: a shared field, unwrapped positions, one
+    kernel on the card and nothing else (no remainder, no field copy)."""
+    x = torch.rand((4, N), generator=gen, device=dev) * (3 * L) - L
+    e = torch.randn(M, generator=gen, device=dev)
+    grid = make_grid(M, L, device=dev)
+    dep.gather(e, x, grid, method="pallas")
+    names = _device_ops(lambda: dep.gather(e, x, grid, method="pallas"), tmp_path)
+    assert len(names) == 1 and "gather_kernel" in names[0], names
+
+
 def test_deposit_wrap_edge(dev):
     x = torch.tensor([L * (1 - 1e-7), 0.0, 0.1, L - 0.1], device=dev)
     for kind in KINDS:
@@ -78,10 +131,10 @@ def test_deposit_wrap_edge(dev):
 @pytest.mark.parametrize("n,k,h,km", [(5000, 384, 6, 8), (384, 7, 4, 5), (300, 16, 3, 16),
                                       (14448, 8, 2, 4), (20_000, 64, 10, 16)])
 def test_spectral_horizon_matches_plain(dev, gen, rot, n, k, h, km):
-    """Mode sums reduced in another order: rtol 2e-4 (the JAX package's bar
-    for the TPU kernel's drift variants). N=14448 is the most particles whose
-    trig state fits shared memory; at N=20000 both drifts keep the state in
-    global memory."""
+    """Mode sums reduced in another order and the field by Clenshaw's
+    recurrence: rtol 2e-4 (the JAX package's bar for the TPU kernel's drift
+    variants), each at the cluster size launch_geometry chooses. N=5000 is
+    the spectral slice."""
     x0 = torch.rand(n, generator=gen, device=dev) * L
     v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
     u_c = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
@@ -99,9 +152,9 @@ def test_spectral_horizon_matches_plain(dev, gen, rot, n, k, h, km):
 @pytest.mark.parametrize("n,k,h,km", [(10_000, 1024, 10, 16), (384, 7, 4, 5), (20_000, 64, 10, 16)])
 def test_corrected_spectral_horizon_matches_plain(dev, gen, rot, n, k, h, km):
     """The twin-corrected variant at the twin slice's plan model, a small odd
-    shape and with its state in global memory, targets of the size of the
-    mode sums (~sqrt(N)): rtol 2e-4, as for the plain energies; one launch,
-    counted as corrected."""
+    shape and at N=20000, targets of the size of the mode sums (~sqrt(N)):
+    rtol 2e-4, as for the plain energies; one launch, counted as
+    corrected."""
     x0 = torch.rand(n, generator=gen, device=dev) * L
     v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
     u_c = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
@@ -115,6 +168,98 @@ def test_corrected_spectral_horizon_matches_plain(dev, gen, rot, n, k, h, km):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, sh.spectral_horizon_plain(x0, v0, u_c, u_s, **kw),
                                rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("corrected", [False, True], ids=["plain", "corrected"])
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+@pytest.mark.parametrize("km", [1, 8, 16])
+@pytest.mark.parametrize("fill", ["ragged", "short"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_spectral_horizon_at_every_cluster_size(dev, gen, cluster, fill, km, rot, corrected):
+    """Each cluster size launch_geometry can choose, forced on the private
+    launch: N not a multiple of C * 256 ("ragged", K=5) and N < C * 256
+    ("short", K=1: each CTA holds fewer particles than threads), against the
+    plain version to rtol 2e-4."""
+    n = cluster * 256 * 3 + 77 if fill == "ragged" else max(cluster * 256 - 37, 5)
+    k, h = (5, 4) if fill == "ragged" else (1, 3)
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
+    u_c = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    u_s = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    tc, ts = ((n ** 0.5 * torch.randn((h, km), generator=gen, device=dev) for _ in range(2))
+              if corrected else (None, None))
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=rot, twin_c=tc, twin_s=ts)
+    s = -(-n // cluster)
+    geo = sh.Geometry(cluster, s, 4 * (3 if rot else 4) * s)
+    got = sh._spectral_horizon_cuda(x0, v0, u_c, u_s, n_modes=None, geometry=geo, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, sh.spectral_horizon_plain(x0, v0, u_c, u_s, **kw),
+                               rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("corrected", [False, True], ids=["plain", "corrected"])
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+@pytest.mark.parametrize("n,cluster", [(5000, 16), (3001, 1), (320_000, 16)])
+def test_spectral_horizon_global_scratch(dev, gen, n, cluster, rot, corrected):
+    """The state in a global scratch: forced at N=5000 and N=3001, and as
+    the wrapper chooses it at N=320000, beyond what 16 CTAs hold; rtol
+    2e-4 against the plain version."""
+    k, h, km = 4, 3, 8
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
+    u_c = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    u_s = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    tc, ts = ((n ** 0.5 * torch.randn((h, km), generator=gen, device=dev) for _ in range(2))
+              if corrected else (None, None))
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=rot, twin_c=tc, twin_s=ts)
+    geo = sh.Geometry(cluster, -(-n // cluster), 0)
+    if n == 320_000:
+        assert sh.launch_geometry(n, rot) == geo and not sh.state_in_shared(n, rot)
+        got = sh.spectral_horizon(x0, v0, u_c, u_s, **kw)
+    else:
+        got = sh._spectral_horizon_cuda(x0, v0, u_c, u_s, n_modes=None, geometry=geo, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, sh.spectral_horizon_plain(x0, v0, u_c, u_s, **kw),
+                               rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,k,km", [(10_000, 1024, 16), (100_000, 32, 16), (5000, 384, 8)])
+def test_spectral_horizon_is_deterministic(dev, gen, n, k, km):
+    """Mode sums added in a fixed order (threads, warps, the cluster's ranks
+    0..C-1) and no atomics: two launches give bitwise equal energies."""
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
+    u_c = 0.3 * torch.randn((k, 10, km), generator=gen, device=dev)
+    u_s = 0.3 * torch.randn((k, 10, km), generator=gen, device=dev)
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=True)
+    assert torch.equal(sh.spectral_horizon(x0, v0, u_c, u_s, **kw),
+                       sh.spectral_horizon(x0, v0, u_c, u_s, **kw))
+
+
+def test_spectral_horizon_is_one_device_op(dev, gen, tmp_path):
+    """The twin slice's call as candidate_costs makes it: a stride-10 plan
+    subsample and (K, H, Ka) views of one candidate tensor padded to Km in
+    the kernel. One launch counted, one kernel on the card and no other
+    device op; the energies equal those of contiguous, zero-padded inputs."""
+    x = torch.rand(100_000, generator=gen, device=dev) * L
+    v = 1.5 * torch.randn(100_000, generator=gen, device=dev)
+    x0, v0 = x[::10], v[::10]
+    cand = 0.3 * torch.randn((64, 10, 16), generator=gen, device=dev)
+    tc, ts = (100.0 * torch.randn((10, 16), generator=gen, device=dev) for _ in range(2))
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=10_000, rot=True, twin_c=tc, twin_s=ts)
+
+    def call():
+        return sh.spectral_horizon(x0, v0, cand[..., :8], cand[..., 8:], n_modes=16, **kw)
+
+    got = call()
+    before = sh.spectral_horizon.launches
+    names = _device_ops(call, tmp_path)
+    assert sh.spectral_horizon.launches == before + 1
+    assert len(names) == 1 and "spectral_horizon_kernel" in names[0], names
+    pad = torch.nn.functional.pad
+    ref = sh.spectral_horizon(x0.contiguous(), v0.contiguous(), pad(cand[..., :8], (0, 8)),
+                              pad(cand[..., 8:], (0, 8)), **kw)
+    assert torch.equal(got, ref)
 
 
 def test_corrected_spectral_horizon_refuses_bad_targets(dev):

@@ -129,6 +129,25 @@ def test_cic_plain_matches_pallas_kernel(rng, kind):
     np.testing.assert_allclose(got_g.numpy(), np.asarray(ref_g), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("shared", [True, False], ids=["shared-field", "row-fields"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_gather_of_unwrapped_positions_matches_pallas(rng, kind, shared):
+    """The gather kernel wraps positions itself, as torch.remainder does:
+    its plain version and deposit.gather(method="pallas") on positions in
+    [-L, 2L), with one (M,) field for every row or a field per row, against
+    the Pallas TPU kernel (interpret mode) on the jnp.mod-wrapped positions
+    (the same fmod and sign fix-up, so the same float32 positions): atol
+    1e-5, the bar of the kernel against its plain version."""
+    x = rng.uniform(-L, 2 * L, (4, 512)).astype(np.float32)
+    e = rng.standard_normal(M if shared else (4, M)).astype(np.float32)
+    ref = gather_cic_pallas(jnp.asarray(np.broadcast_to(e, (4, M))), jnp.mod(jnp.asarray(x), L), M,
+                            L, block_n=256, interpret=True, kind=kind)
+    got = cic.gather_cic_plain(_t(e), _t(x), M, L, kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0.0, atol=1e-5)
+    via = tdep.gather(_t(e), _t(x), tmake_grid(M, L, device="cpu"), kind=kind, method="pallas")
+    np.testing.assert_allclose(via.numpy(), np.asarray(ref), rtol=0.0, atol=1e-5)
+
+
 def test_cic_plain_at_the_wrap_edge():
     """A position that rounds to pos == M (x just below L) deposits into
     cells M-1, 0, 1 like the dense path. The kernel scales by 1/dx (as the

@@ -20,8 +20,9 @@ from plasma_control_tpu_torch.control.actuator import make_actuator
 from plasma_control_tpu_torch.control.mpc import candidate_costs
 from plasma_control_tpu_torch.interop import state_from_numpy
 from plasma_control_tpu_torch.ops.grid import make_grid
+from plasma_control_tpu_torch.ops.kernels import _build
 from plasma_control_tpu_torch.ops.kernels.spectral_horizon import (
-    spectral_horizon, spectral_horizon_supported, state_in_shared, use_rot,
+    launch_geometry, spectral_horizon, spectral_horizon_supported, state_in_shared, use_rot,
 )
 
 torch.set_num_threads(1)
@@ -61,8 +62,10 @@ def test_drift_gate_and_limits():
     assert spectral_horizon_supported(5000, 8)
     assert spectral_horizon_supported(100_000, 8)  # any N: large N keeps its state in global memory
     assert not spectral_horizon_supported(5000, 17)
-    assert state_in_shared(14448, rot=False) and not state_in_shared(14449, rot=False)
-    assert state_in_shared(19264, rot=True) and not state_in_shared(19265, rot=True)
+    # a cluster of 16 CTAs holds 16 slices of 227 KB less the 1408 B of
+    # reduction scratch
+    assert state_in_shared(231040, rot=False) and not state_in_shared(231041, rot=False)
+    assert state_in_shared(308048, rot=True) and not state_in_shared(308049, rot=True)
 
 
 def _setup(n, ka, **mpc_kw):
@@ -133,9 +136,9 @@ def test_kernel_and_op_paths_agree_on_trig():
 
 
 def test_plain_horizon_above_the_old_particle_cap_matches_jax_xla():
-    """N=15000, above the 14336 particles the kernel once held: the port's
-    plain spectral horizon (plan_kernel="fused", trig drift; on the card the
-    kernel with its state in global memory) against the JAX package's XLA
+    """N=15000, above the 14336 particles the kernel once held in one CTA:
+    the port's plain spectral horizon (plan_kernel="fused", trig drift; on
+    the card the kernel on a cluster of CTAs) against the JAX package's XLA
     scan, K=4, H=3: rtol 2e-4, atol 1e-5, the bar of the cost tests above."""
     n, ka = 15_000, 2
     (jst, jg, jcfg, jact), (tst, tg, tcfg, tact) = _setup(n, ka)
@@ -146,3 +149,50 @@ def test_plain_horizon_above_the_old_particle_cap_matches_jax_xla():
     got = candidate_costs(tst, torch.tensor(cand), tg, tcfg,
                           MPCConfig(plan_kernel="fused", spectral_drift="trig", **kw), tact)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+@pytest.mark.parametrize("n", [1, 7, 255, 2730, 5000, 5462, 10_000, 20_000, 100_000, 231_041,
+                               308_048, 308_049, 1_000_003])
+def test_launch_geometry_covers_every_particle(n, rot):
+    """The kernel's split of one candidate over a cluster, as the kernel
+    computes it (CTA r: lo = min(r S, N), min(S, N - lo) particles): every
+    particle in exactly one CTA; C a power of two within the cluster limit,
+    the smallest whose slice fits 64 KiB, 16 where none does; a slice in
+    shared memory within one CTA's share beside the kernel's 1408 B of
+    reduction scratch, else the global scratch."""
+    geo = launch_geometry(n, rot)
+    per = 12 if rot else 16
+    assert geo.cluster in (1, 2, 4, 8, 16) and geo.cluster <= _build.MAX_CLUSTER
+    assert geo.slice == -(-n // geo.cluster)
+    owners = np.zeros(n, dtype=int)
+    for r in range(geo.cluster):
+        lo = min(r * geo.slice, n)
+        owners[lo:lo + min(geo.slice, n - lo)] += 1
+    assert (owners == 1).all()
+    fits = per * geo.slice <= _build.SHARED_BYTES - 1408
+    assert geo.shared_bytes == (per * geo.slice if fits else 0)
+    if geo.cluster < _build.MAX_CLUSTER:
+        assert per * geo.slice <= 64 * 1024
+    if geo.cluster > 1:
+        assert per * -(-n // (geo.cluster // 2)) > 64 * 1024
+    assert state_in_shared(n, rot) == fits
+
+
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+def test_drive_views_padded_to_n_modes(rot):
+    """candidate_costs hands the kernel (K, H, Ka) views of one candidate
+    tensor and the model's Km: the same energies as zero-padded (K, H, Km)
+    inputs, exactly, and as the Pallas kernel on those to rtol 2e-4."""
+    x, v, u_c, u_s = _inputs(5, 384, 6, 4, 3)
+    cand = torch.tensor(np.concatenate([u_c, u_s], axis=-1))
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=384, rot=rot)
+    got = spectral_horizon(torch.tensor(x), torch.tensor(v), cand[..., :3], cand[..., 3:],
+                           n_modes=8, **kw)
+    pad = ((0, 0), (0, 0), (0, 5))
+    pc, ps = np.pad(u_c, pad), np.pad(u_s, pad)
+    assert torch.equal(got, spectral_horizon(torch.tensor(x), torch.tensor(v), torch.tensor(pc),
+                                             torch.tensor(ps), **kw))
+    ref = fused_spectral_horizon(jnp.asarray(x), jnp.asarray(v), jnp.asarray(pc), jnp.asarray(ps),
+                                 interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=1e-6)
