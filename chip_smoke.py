@@ -17,9 +17,14 @@ any failure exits non-zero:
    events, median of 30 calls, wrapper included) and the kernel alone (its
    device time per launch in a profiler trace, and the device ops per
    call): the spectral slice's kernels 1-3, the gather also on positions
-   outside [0, L) and on one (M,) field for every row; the grid planner's
-   kernels 4-6 at its plan model (K=512, H=10, N=1250, M=64), kernel 5
-   against kernel 6 (one contract); kernel 1 at N=20000 (K=64, H=10, Km=16,
+   outside [0, L) and on one (M,) field for every row, the deposit on
+   positions in [-L, 2L) with the normalisation applied in the kernel, two
+   of its launches bitwise equal and ``deposit(method="pallas")`` one device
+   op per call, at N=5000, M=250 and at the twin slice's environment
+   (N=100000, M=256, also bitwise the same at every cluster size); the grid
+   planner's kernels 4-6 at its plan model (K=512, H=10, N=1250, M=64), two
+   launches of kernels 5-6 bitwise equal for each kind, kernel 5 against
+   kernel 6 (one contract); kernel 1 at N=20000 (K=64, H=10, Km=16,
    clusters of 4 CTAs for rot, 8 for trig); kernel 1's twin-corrected
    variant at the twin slice's plan model (K=1024, H=10, Km=16, N=10000)
    with both drifts, at
@@ -66,7 +71,9 @@ any failure exits non-zero:
    that the loop applies a drive on both sides; the twin slice with one
    corrected candidate block of 128 and a three-step loop at K=64 with the
    guard off (``experiments/config4_frontier.py:92-95``), so that the
-   corrected costs drive on both sides.
+   corrected costs drive on both sides;
+6. run the spectral and the grid slice twice for 20 control steps from one
+   seed and report whether the two runs end in bitwise the same state.
 
 The last two lines of standard output are one JSON object per kernel
 (launches in its path's run, error against the plain version, times, the
@@ -205,31 +212,38 @@ def device_ms(torch, fn, kernel: str | None, reps: int = 20) -> tuple[float, flo
     """(median device time in ms of the kernels whose name contains
     ``kernel``, device ops per call) over ``reps`` calls of ``fn``, from a
     profiler trace: kernels, copies and sets on the device. ``kernel=None``:
-    the mean device time of all of a call's kernels together."""
+    the mean device time of all of a call's kernels together. A trace that
+    missed the window's device events (the profiler drops a window now and
+    then over the many this run opens) is taken again, up to three times."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _attempt in range(3):
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        prof.export_chrome_trace(f"{tmp}/trace.json")
-        with open(f"{tmp}/trace.json") as f:
-            trace = json.load(f)
-    events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("ph") == "X"]
-    if kernel is None:
-        return sum(e["dur"] for e in events if e["cat"] == "kernel") / 1e3 / reps, len(events) / reps
-    # the trace may miss an event at the start of the window
-    ours = [e["dur"] for e in events if e["cat"] == "kernel" and kernel in e["name"]]
-    require(reps - 2 <= len(ours) <= reps, f"device time of {kernel}: {len(ours)} launches in "
-            f"{reps} calls")
-    return statistics.median(ours) / 1e3, len(events) / len(ours)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/trace.json")
+            with open(f"{tmp}/trace.json") as f:
+                trace = json.load(f)
+        events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("ph") == "X"]
+        kernels = [e for e in events if e["cat"] == "kernel"]
+        if kernel is None:
+            if kernels:
+                return sum(e["dur"] for e in kernels) / 1e3 / reps, len(events) / reps
+            continue
+        # the trace may miss an event at the start of the window
+        ours = [e["dur"] for e in kernels if kernel in e["name"]]
+        if reps - 2 <= len(ours) <= reps:
+            return statistics.median(ours) / 1e3, len(events) / len(ours)
+    require(False, f"device time of {kernel}: {len(ours) if kernel else 0} launches in {reps} "
+            f"calls, three windows")
 
 
 def find_card(torch) -> str:
@@ -268,26 +282,31 @@ def check_kernels(torch, rows: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(123)
     n, m, length = SIM["n_particles"], SIM["n_mesh"], SIM["length"]
 
-    # deposit / gather: every kind, B = 1 and 4. Deposit sums ~20 weights per
-    # cell in fp32 atomics of varying order: rtol 1e-5, atol 1e-4 (the JAX
-    # package's Pallas bar); gather is a 4-tap sum: atol 1e-5.
+    # deposit / gather: every kind, B = 1 and 4. The deposit sums ~20 weights
+    # per cell exactly (fixed point), the plain version in fp32: rtol 1e-5,
+    # atol 1e-4 (the JAX package's Pallas bar), on positions in [-L, 2L) that
+    # the kernel wraps, with the normalisation n0 L / N / dx applied in the
+    # kernel; gather is a 4-tap sum: atol 1e-5.
     dep_err = gat_err = 0.0
+    scale = length / n / (length / m)
     for b in (1, 4):
         x = torch.rand((b, n), generator=gen, device=dev) * length
+        xu = torch.rand((b, n), generator=gen, device=dev) * (3 * length) - length
         e = torch.randn((b, m), generator=gen, device=dev)
         for kind in KINDS:
-            got, ref = cic.deposit_cic(x, m, length, kind), cic.deposit_cic_plain(x, m, length, kind)
+            got = cic.deposit_cic(xu, m, length, kind, scale=scale)
+            ref = cic.deposit_cic_plain(xu, m, length, kind, scale=scale)
             torch.cuda.synchronize()
             require(torch.allclose(got, ref, rtol=1e-5, atol=1e-4), f"deposit {kind} B={b}")
             charge = float(got.sum())
-            require(abs(charge - n * b) <= 1e-5 * n * b, f"deposit {kind} B={b}: charge {charge}")
+            require(abs(charge - m * b) <= 1e-5 * m * b, f"deposit {kind} B={b}: charge {charge}")
             dep_err = max(dep_err, float((got - ref).abs().max()))
             got, ref = cic.gather_cic(e, x, m, length, kind), cic.gather_cic_plain(e, x, m, length, kind)
             torch.cuda.synchronize()
             require(torch.allclose(got, ref, rtol=0.0, atol=1e-5), f"gather {kind} B={b}")
             gat_err = max(gat_err, float((got - ref).abs().max()))
-    log(f"[kernels] deposit: 3 kinds x B in (1, 4), N={n}, M={m}: max |err| {dep_err:.3g} "
-        f"(rtol 1e-5, atol 1e-4), charge conserved to 1e-5")
+    log(f"[kernels] deposit: 3 kinds x B in (1, 4), N={n}, M={m}, positions in [-L, 2L), scale "
+        f"n0 L / N / dx: max |err| {dep_err:.3g} (rtol 1e-5, atol 1e-4), charge conserved to 1e-5")
     log(f"[kernels] gather: 3 kinds x B in (1, 4): max |err| {gat_err:.3g} (atol 1e-5)")
     # the env path's inputs: positions outside [0, L), one (M,) field read
     # at row stride 0; the kernel wraps as torch.remainder does
@@ -305,22 +324,17 @@ def check_kernels(torch, rows: dict) -> None:
 
     x1 = torch.rand((1, n), generator=gen, device=dev) * length
     e1 = torch.randn((1, m), generator=gen, device=dev)
-    rows["deposit_cic"].update(
-        max_abs_err=dep_err,
-        ms=time_ms(torch, lambda: cic.deposit_cic(x1, m, length)),
-        plain_ms=time_ms(torch, lambda: cic.deposit_cic_plain(x1, m, length)),
-    )
+    check_deposit(torch, rows, "deposit_cic", n, m, length, gen)
     rows["gather_cic"].update(
         max_abs_err=gat_err,
         ms=time_ms(torch, lambda: cic.gather_cic(e1, x1, m, length)),
         plain_ms=time_ms(torch, lambda: cic.gather_cic_plain(e1, x1, m, length)),
     )
-    for name, fn, kernel in (("deposit_cic", lambda: cic.deposit_cic(x1, m, length), "deposit_kernel"),
-                             ("gather_cic", lambda: cic.gather_cic(e1, x1, m, length), "gather_kernel")):
-        rows[name]["device_ms"], ops = device_ms(torch, fn, kernel)
-        log(f"[kernels] {name}: device time {rows[name]['device_ms']:.5f} ms per launch, "
-            f"{ops:.3g} device ops per call")
-    rows["deposit_cic"].update(library_ms=None, **bound(DEPOSIT_OPS * n + m, 4 * (n + m)))
+    rows["deposit_cic"]["max_abs_err"] = max(dep_err, rows["deposit_cic"]["max_abs_err"])
+    rows["gather_cic"]["device_ms"], ops = device_ms(
+        torch, lambda: cic.gather_cic(e1, x1, m, length), "gather_kernel")
+    log(f"[kernels] gather_cic: device time {rows['gather_cic']['device_ms']:.5f} ms per launch, "
+        f"{ops:.3g} device ops per call")
     rows["gather_cic"].update(**bound(GATHER_OPS * n, 4 * (m + 2 * n)))
 
     # the library's periodic linear interpolation: grid_sample over the mesh
@@ -396,6 +410,52 @@ def check_kernels(torch, rows: dict) -> None:
             f"plain {rows[name]['plain_ms']:.4f} ms per call")
 
 
+def check_deposit(torch, rows: dict, name: str, n: int, m: int, length: float, gen) -> None:
+    """Kernel 2 at one of its paths' shapes (B=1, N positions in [-L, 2L),
+    M cells, the normalisation of ops/deposit.py::deposit): two launches
+    bitwise equal; at every cluster size the wrapper can choose bitwise the
+    same row, each size's device time; deposit(method="pallas") one device
+    op per call; timed wrapped, on the device and beside the plain
+    version."""
+    from plasma_control_tpu_torch.ops import deposit as dep
+    from plasma_control_tpu_torch.ops.grid import make_grid
+    from plasma_control_tpu_torch.ops.kernels import cic
+
+    dev = torch.device("cuda")
+    x = torch.rand((1, n), generator=gen, device=dev) * (3 * length) - length
+    grid = make_grid(m, length, device=dev)
+    scale = length / n / grid.dx
+    one = cic.deposit_cic(x, m, length, scale=scale)
+    require(torch.equal(one, cic.deposit_cic(x, m, length, scale=scale)),
+            f"{name}: two launches differ")
+    chosen = cic.deposit_cluster(n, 1, 0)
+    sizes = (1, 2, 4, 8, 16)
+    for c in sizes:
+        require(torch.equal(cic._deposit_cuda(x, m, length, "cic", scale, c), one),
+                f"{name}: cluster of {c} CTAs differs")
+    err = float((one - cic.deposit_cic_plain(x, m, length, scale=scale)).abs().max())
+    require(torch.allclose(one, cic.deposit_cic_plain(x, m, length, scale=scale), rtol=1e-5,
+                           atol=1e-4), f"{name} vs plain")
+    call = lambda: dep.deposit(x, grid, method="pallas")  # noqa: E731
+    require(torch.equal(call(), one), f"{name}: deposit() and the kernel")
+    dev_ms, ops = device_ms(torch, call, "deposit_kernel")
+    require(ops == 1, f"{name}: deposit(method='pallas') is {ops:.3g} device ops per call")
+    per = {c: device_ms(torch, lambda: cic._deposit_cuda(x, m, length, "cic", scale, c),
+                        "deposit_kernel")[0] for c in sizes}
+    rows[name].update(
+        max_abs_err=err, device_ms=dev_ms,
+        ms=time_ms(torch, lambda: cic.deposit_cic(x, m, length, scale=scale)),
+        plain_ms=time_ms(torch, lambda: cic.deposit_cic_plain(x, m, length, scale=scale)),
+        library_ms=None, **bound(DEPOSIT_OPS * n + 2 * m, 4 * (n + m)),
+    )
+    log(f"[kernels] {name}: N={n}, M={m}, cluster of {chosen} CTAs: two launches bitwise equal, "
+        f"the same row at clusters of {sizes} CTAs, max |err| {err:.3g} against plain (rtol 1e-5, "
+        f"atol 1e-4); deposit(method='pallas') one device op per call; device time "
+        f"{dev_ms:.5f} ms per launch (by cluster size: "
+        f"{', '.join(f'{c}: {t:.5f}' for c, t in per.items())} ms); kernel "
+        f"{rows[name]['ms']:.4f} ms, plain {rows[name]['plain_ms']:.4f} ms per call")
+
+
 def check_grid_kernels(torch, rows: dict) -> None:
     """Phase 3, second part: kernels 4-6 at the grid slice's plan model, and
     kernel 1 at N=20000 on a cluster of CTAs."""
@@ -461,6 +521,8 @@ def check_grid_kernels(torch, rows: dict) -> None:
             got, ref = fn(x0, v0, u, eop, kind=kind, **kw), plain(x0, v0, u, eop, kind=kind, **kw)
             torch.cuda.synchronize()
             require(bool(torch.isfinite(got).all()), f"{name} {kind}: non-finite energies")
+            require(torch.equal(got, fn(x0, v0, u, eop, kind=kind, **kw)),
+                    f"{name} {kind}: two launches differ")
             miss = int(((got - ref).abs() > 1e-6 + 2e-4 * ref.abs()).sum())
             require(miss <= (got.numel() // 1000 if kind == "tsc" else 0),
                     f"{name} {kind}: {miss} energies beyond rtol 2e-4")
@@ -468,10 +530,10 @@ def check_grid_kernels(torch, rows: dict) -> None:
             err = max(err, float((got - ref).abs().max()))
             out[name, kind] = got
         log(f"[kernels] {name}: 3 kinds, K={k}, H={h}, N={n}, M={m}: max |err| {err:.3g} "
-            f"(rtol 2e-4)")
+            f"(rtol 2e-4); two launches bitwise equal for each kind")
         rows[name]["device_ms"], _ = device_ms(
             torch, lambda: fn(x0, v0, u, eop, **kw),
-            "horizon_kernel<true>" if name == "fused_packed_horizon" else "horizon_kernel<false>")
+            "horizon_kernel<true" if name == "fused_packed_horizon" else "horizon_kernel<false")
         rows[name].update(
             max_abs_err=err,
             ms=time_ms(torch, lambda: fn(x0, v0, u, eop, **kw)),
@@ -970,6 +1032,9 @@ def check_twin_kernel(torch, rows: dict) -> None:
         f"device {dev_ms:.5f} ms, plain {rows['spectral_horizon_twin']['plain_ms']:.4f} ms per call; "
         f"one device op per call, two launches bitwise equal")
 
+    # kernel 2 at the twin slice's environment: N=100000, M=256
+    check_deposit(torch, rows, "deposit_cic_twin", cfg.n_particles, cfg.n_mesh, cfg.length, gen)
+
     # zero drive on the trig drift, where the kernel's drift is the twin's:
     # the candidate's phasor is the twin's (c0, s0), the target rho (c0, s0),
     # so its corrected energy is pe_scale sum_m lambda_m^2 (c0^2 + s0^2) / k_m^2.
@@ -1065,12 +1130,14 @@ def run_twin_slice(torch, rows: dict) -> None:
     coeffs = torch.cat([o.coeffs for o in outs])
     plan_cost = torch.cat([o.plan_cost for o in outs])
     rows["spectral_horizon_twin"]["launches"] = launches["spectral_horizon_twin"]
+    rows["deposit_cic_twin"]["launches"] = launches["deposit_cic"]
     log(f"[twin] {steps} control steps; kernel launches in the controlled run: {launches}")
     require(launches["spectral_horizon"] == launches["spectral_horizon_twin"] == steps,
             "one corrected spectral_horizon launch per solve")
     require(launches["fused_leapfrog_step"] == launches["fused_kdk_horizon"]
             == launches["fused_packed_horizon"] == 0, "no grid planner kernel")
     require(launches["gather_cic"] == 3 * steps, "three gathers per Yoshida-4 step")
+    require(launches["deposit_cic"] >= 5 * steps, "five deposits per control step")
 
     t1 = time.perf_counter()
     base = rollout(state, grid, cfg)
@@ -1177,6 +1244,31 @@ def check_twin_against_cpu(torch) -> None:
         f"{float((a_gpu - a_cpu).abs().max()):.3g} (atol 1e-2)")
 
 
+def check_loops_repeat(torch) -> None:
+    """Phase 6: the spectral and the grid slice, each run twice for 20
+    control steps from one seeded state and plan generator: reports whether
+    the two runs end in bitwise the same state and traces (not asserted)."""
+    from plasma_control_tpu_torch.control.mpc import mpc_rollout
+    from plasma_control_tpu_torch.models.pic import init_state
+
+    dev = torch.device("cuda")
+    for what, mpc_kw in (("spectral", MPC), ("grid", GRID_MPC)):
+        cfg, ctrl, mpc, grid, act = _setup(torch, dev, mpc=mpc_kw)
+        state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        runs = [mpc_rollout(state, grid, cfg, ctrl, mpc, act,
+                            torch.Generator(device=dev).manual_seed(8), n_steps=20)
+                for _ in range(2)]
+        same = {name: torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+                for name in ("field_energy", "coeffs", "plan_cost")}
+        same["x"] = torch.equal(runs[0].final_state.x, runs[1].final_state.x)
+        same["v"] = torch.equal(runs[0].final_state.v, runs[1].final_state.v)
+        first = next((t for t in range(20) if not torch.equal(runs[0].field_energy[t],
+                                                               runs[1].field_energy[t])), None)
+        log(f"[repeat] {what} slice, 20 steps twice from one seed: bitwise the same "
+            f"{'in every output' if all(same.values()) else same}"
+            f"{'' if first is None else f'; PE first differs at step {first}'}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1199,6 +1291,8 @@ def main() -> int:
         "spectral_horizon_twin": dict(
             source="plasma_control_tpu_torch/csrc/spectral_horizon.cu",
             replaces="plasma_control_tpu/ops/pallas/spectral_horizon.py:303"),
+        "deposit_cic_twin": dict(source="plasma_control_tpu_torch/csrc/cic.cu",
+                                 replaces="plasma_control_tpu/ops/pallas/cic_pallas.py:91"),
     }
     check_kernels(torch, rows)
     check_grid_kernels(torch, rows)
@@ -1214,6 +1308,7 @@ def main() -> int:
     check_against_cpu(torch)
     check_grid_against_cpu(torch, end_state)
     check_twin_against_cpu(torch)
+    check_loops_repeat(torch)
     log(f"[total] {time.perf_counter() - t_start:.1f} s wall, build included")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -10,7 +10,9 @@ The counterpart of :mod:`plasma_control_tpu.ops.deposit`:
   JAX package, not a TPU kernel, so plain PyTorch ops are its port;
 * ``method="pallas"``: the hand-written kernel of :mod:`.kernels.cic` (the
   config value is shared with the JAX package, where it names the Pallas TPU
-  kernel). On CPU tensors it runs the kernel's plain PyTorch version.
+  kernel), which wraps the positions and normalises in the kernel, so a
+  deposit is one device op. On CPU tensors it runs the kernel's plain PyTorch
+  version.
 
 Normalization matches the reference: ``n *= n0 * L / N / dx``. ``kind="tsc"``
 is the reference's shifted quadratic kernel, ``"tsc_standard"`` the textbook
@@ -121,20 +123,20 @@ def deposit(
     """Deposit particle charge onto the mesh: (..., N) positions to the (..., M)
     density."""
     _check_method(method)
-    xw = torch.remainder(x, grid.length)
+    scale = n0 * grid.length / x.shape[-1] / grid.dx if normalize else None
     if method == "pallas":
         from .kernels.cic import deposit_cic
 
-        n = deposit_cic(xw, grid.n_mesh, grid.length, kind=kind)
-    elif method == "scatter":
+        # the kernel wraps the positions and applies the scale: one launch
+        return deposit_cic(x, grid.n_mesh, grid.length, kind=kind,
+                           scale=1.0 if scale is None else scale)
+    if method == "scatter":
         n = torch.zeros(x.shape[:-1] + (grid.n_mesh,), dtype=x.dtype, device=x.device)
         for idx, w in zip(*deposit_and_gather_indices(x, grid, kind)):
             n.scatter_add_(-1, idx, w)
     else:
-        n = shape_weights_dense(xw, grid, kind).sum(-2)
-    if normalize:
-        n = n * (n0 * grid.length / x.shape[-1] / grid.dx)
-    return n
+        n = shape_weights_dense(torch.remainder(x, grid.length), grid, kind).sum(-2)
+    return n if scale is None else n * scale
 
 
 def gather(

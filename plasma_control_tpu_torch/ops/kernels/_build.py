@@ -95,8 +95,8 @@ class GridParams(ctypes.Structure):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, out, b, n, m, inv_dx, kind, stream
-    "pct_cic_deposit": [_P, _P, _I, _I, _I, _F, _I, _P],
+    # x, out, b, n, m, length, inv_dx, scale, kind, cluster, stream
+    "pct_cic_deposit": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P],
     # e, x, out, b, n, m, e_stride, length, inv_dx, kind, stream
     "pct_cic_gather": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     # x0, v0, uc, us, tc, ts, pe, scratch, params, rot, stream

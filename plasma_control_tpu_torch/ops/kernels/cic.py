@@ -10,12 +10,16 @@ bounds the kernels on the H100 and how they are laid out.
 
 A wrapper runs the plain version for a CPU tensor and the kernel for a CUDA
 tensor (float32, any leading batch shape); any other device raises. Each
-kernel launch adds one to the wrapper's ``launches`` count. The deposit takes
-positions in [0, L); the gather takes any positions and wraps them as
-``torch.remainder(x, L)`` does, in its kernel and in its plain version alike.
+kernel launch adds one to the wrapper's ``launches`` count. Both take any
+positions and wrap them as ``torch.remainder(x, L)`` does, in the kernel and
+in the plain version alike; the deposit also applies a float32 ``scale`` (the
+caller's normalisation), so that a deposit on the card is one device op and
+sums bitwise the same in every launch (fixed-point counts, ``csrc/cic.cu``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,7 +30,11 @@ __all__ = ["deposit_cic", "gather_cic", "deposit_cic_plain", "gather_cic_plain"]
 
 _KIND_ID = {"cic": 0, "tsc": 1, "tsc_standard": 2}
 _MAX_BATCH = 65535  # gridDim.y
-_MAX_GATHER_MESH = 12288  # the gather stages a field row in 48 KB of shared memory
+_MAX_MESH = 12288  # the gather stages a field row in 48 KB of shared memory, the deposit
+                   # keeps 96 KB of fixed-point counts
+_MAX_CLUSTER = 16  # kMaxCluster of csrc/cic.cu
+_DEPOSIT_THREADS = 1024  # kDepositThreads of csrc/cic.cu
+_CTA_PARTICLES = 8 * _DEPOSIT_THREADS  # a CTA's share of a row: 8 particles per thread
 _F32 = torch.float32
 
 
@@ -38,12 +46,15 @@ def _taps(x: torch.Tensor, n_mesh: int, length: float, kind: str):
     return torch.remainder(cell.long(), n_mesh), w
 
 
-def deposit_cic_plain(x: torch.Tensor, n_mesh: int, length: float, kind: str = "cic") -> torch.Tensor:
-    """Plain version of the deposit kernel: (..., N) positions in [0, L) to the
-    (..., M) unnormalised density (sum of shape weights per cell)."""
-    idx, w = _taps(x, n_mesh, length, kind)
+def deposit_cic_plain(x: torch.Tensor, n_mesh: int, length: float, kind: str = "cic",
+                      scale: float = 1.0) -> torch.Tensor:
+    """Plain version of the deposit kernel: (..., N) positions, wrapped to
+    [0, L) first, to the (..., M) density ``scale * (sum of shape weights per
+    cell)``."""
+    idx, w = _taps(torch.remainder(x, length), n_mesh, length, kind)
     out = torch.zeros(x.shape[:-1] + (n_mesh,), dtype=x.dtype, device=x.device)
-    return out.scatter_add_(-1, idx.flatten(-2), w.flatten(-2))
+    out.scatter_add_(-1, idx.flatten(-2), w.flatten(-2))
+    return out if scale == 1.0 else out * scale
 
 
 def gather_cic_plain(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int, length: float,
@@ -57,12 +68,6 @@ def gather_cic_plain(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int, length:
     return (w * taps).sum(-1)
 
 
-def _as_rows(t: torch.Tensor, name: str) -> torch.Tensor:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
-    return t.reshape(-1, t.shape[-1]).contiguous()
-
-
 def _check_device(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; raise on any other."""
     if x.is_cuda:
@@ -72,20 +77,61 @@ def _check_device(x: torch.Tensor, what: str) -> bool:
     return False
 
 
-def deposit_cic(x: torch.Tensor, n_mesh: int, length: float, kind: str = "cic") -> torch.Tensor:
-    """Unnormalised density of (..., N) positions wrapped to [0, L): (..., M)."""
-    if not _check_device(x, "deposit_cic"):
-        return deposit_cic_plain(x, n_mesh, length, kind)
-    rows = _as_rows(x, "deposit_cic")
-    b, n = rows.shape
-    if b > _MAX_BATCH or n_mesh * 4 > 48 * 1024:
-        raise ValueError(f"deposit_cic: batch {b} or mesh {n_mesh} beyond the kernel's limits")
-    out = torch.zeros((b, n_mesh), dtype=torch.float32, device=x.device)
-    if n > 0:
-        _build.call("pct_cic_deposit", x.get_device(), rows.data_ptr(), out.data_ptr(), b, n,
-                    n_mesh, 1.0 / (length / n_mesh), _KIND_ID[kind])
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def deposit_cluster(n_particles: int, n_rows: int, index: int = 0) -> int:
+    """CTAs per row of the deposit: the smallest power of two whose CTAs each
+    take at most 8 particles per thread, at most 16, and no more than it takes
+    for the rows' clusters to cover the card's multiprocessors once. A
+    cluster's CTAs add their histograms through distributed shared memory;
+    the result is bitwise the same at every size."""
+    cover = max(1, _multiprocessors(index) // max(n_rows, 1))
+    c = 1
+    while c < _MAX_CLUSTER and 2 * c <= cover and -(-n_particles // c) > _CTA_PARTICLES:
+        c *= 2
+    return c
+
+
+def deposit_cic(x: torch.Tensor, n_mesh: int, length: float, kind: str = "cic",
+                scale: float = 1.0) -> torch.Tensor:
+    """``scale`` times the density of (..., N) positions, wrapped to [0, L)
+    as ``torch.remainder`` wraps them: (..., M).
+
+    On the card this is one launch and one allocation (``torch.empty``: the
+    kernel writes every cell). Inputs in another layout are made contiguous
+    first."""
+    if x.get_device() < 0:
+        _check_device(x, "deposit_cic")
+        return deposit_cic_plain(x, n_mesh, length, kind, scale)
+    return _deposit_cuda(x, n_mesh, length, kind, scale, None)
+
+
+def _deposit_cuda(x, n_mesh, length, kind, scale, cluster):
+    """The launch. ``cluster`` overrides :func:`deposit_cluster` (tests force
+    a cluster size with it)."""
+    index = x.get_device()
+    if not (x.dtype is _F32 and x.is_contiguous() and 1 <= n_mesh <= _MAX_MESH):
+        if x.dtype != torch.float32:
+            raise TypeError(f"deposit_cic: the CUDA kernel takes float32, got {x.dtype}")
+        if not 1 <= n_mesh <= _MAX_MESH:
+            raise ValueError(f"deposit_cic: mesh of {n_mesh} cells (the kernel takes at most "
+                             f"{_MAX_MESH})")
+        return _deposit_cuda(x.contiguous(), n_mesh, length, kind, scale, cluster)
+    out = torch.empty(x.shape[:-1] + (n_mesh,), dtype=_F32, device=x.device)
+    n = x.shape[-1]
+    b = out.numel() // n_mesh
+    if b:
+        if b > _MAX_BATCH:
+            raise ValueError(f"deposit_cic: batch {b} beyond the kernel's limit {_MAX_BATCH}")
+        c = deposit_cluster(n, b, index) if cluster is None else cluster
+        _build.call("pct_cic_deposit", index, x.data_ptr(), out.data_ptr(), b, n, n_mesh,
+                    length, 1.0 / (length / n_mesh), scale, _KIND_ID[kind], c)
         deposit_cic.launches += 1
-    return out.reshape(x.shape[:-1] + (n_mesh,))
+    return out
 
 
 deposit_cic.launches = 0
@@ -97,9 +143,9 @@ def _gather_layout(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int):
     one row per row of ``x``, on one device."""
     if x.dtype != torch.float32 or e_mesh.dtype != torch.float32 or e_mesh.device != x.device:
         raise TypeError("gather_cic: the CUDA kernel takes float32 tensors on one device")
-    if e_mesh.shape[-1] != n_mesh or n_mesh > _MAX_GATHER_MESH:
+    if e_mesh.shape[-1] != n_mesh or n_mesh > _MAX_MESH:
         raise ValueError(f"gather_cic: field of {e_mesh.shape[-1]} cells for a {n_mesh}-cell "
-                         f"mesh (the kernel takes at most {_MAX_GATHER_MESH})")
+                         f"mesh (the kernel takes at most {_MAX_MESH})")
     if e_mesh.numel() == n_mesh:
         e_mesh = e_mesh.reshape(n_mesh)
     else:
@@ -124,7 +170,7 @@ def gather_cic(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int, length: float
     one_row = e_mesh.dim() == 1
     if not (x.dtype is _F32 and e_mesh.dtype is _F32 and e_mesh.get_device() == index
             and x.is_contiguous() and e_mesh.is_contiguous() and e_mesh.shape[-1] == n_mesh
-            and n_mesh <= _MAX_GATHER_MESH and (one_row or e_mesh.shape[:-1] == x.shape[:-1])):
+            and n_mesh <= _MAX_MESH and (one_row or e_mesh.shape[:-1] == x.shape[:-1])):
         return gather_cic(*_gather_layout(e_mesh, x, n_mesh), n_mesh, length, kind)
     out = torch.empty_like(x)
     n = x.shape[-1]

@@ -19,7 +19,8 @@ and where the particle state lives.
 
 A wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors (float32); any other device raises. Each kernel launch adds one to
-the wrapper's ``launches`` count.
+the wrapper's ``launches`` count. The kernels sum their deposits in integers,
+so two launches on the same inputs return bitwise the same results.
 """
 
 from __future__ import annotations
@@ -108,15 +109,25 @@ def _params(n, m, h, kind, length, dt, n0):
     )
 
 
+_WARPS = 8  # kWarps of csrc/fused_step.cu
+
+
+def _eop_stride(m: int) -> int:
+    """Row stride of e_op_t in shared memory (eop_stride in the source)."""
+    return m + (8 - m % 32) % 32
+
+
 def _layout(n: int, m: int, what: str) -> tuple[bool, bool]:
-    """(state in shared memory, e_op_t in shared memory). The five mesh arrays
-    always live there; the particle state (8 B per particle) comes next, then
-    the (M, M) operator."""
-    fields = 4 * 5 * m
+    """(state in shared memory, e_op_t in shared memory), as the source's
+    shared_words lays them out. The mesh arrays always live there (two
+    fixed-point histograms of 8 B a cell, four fields, a row of densities per warp,
+    the warps' energy partials); the particle state (8 B per particle) comes
+    next, then the (M, M) operator."""
+    fields = 4 * ((8 + _WARPS) * m + _WARPS)
     if fields > _build.SHARED_BYTES:
         raise ValueError(f"{what}: mesh of {m} cells beyond the kernel's shared memory")
     state = fields + 8 * n <= _build.SHARED_BYTES
-    eop = fields + (8 * n if state else 0) + 4 * m * m <= _build.SHARED_BYTES
+    eop = fields + (8 * n if state else 0) + 4 * m * _eop_stride(m) <= _build.SHARED_BYTES
     return state, eop
 
 

@@ -79,6 +79,61 @@ def test_horizon_plain_matches_pallas(m, merged):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4)
 
 
+@pytest.mark.parametrize("merged", [False, True], ids=["kdk", "packed"])
+def test_horizon_plain_matches_pallas_at_the_wrap_edge(merged):
+    """Particles that start at 0 and an ulp below L, with velocities that
+    carry them across 0 and L in the first drift: the plain versions wrap as
+    the CUDA kernels do (torch.remainder's arithmetic), the TPU kernels with
+    jnp.mod. Per-step energies to rtol 2e-4, as above."""
+    m = 64
+    x, v = _state(11, N)
+    x[:60] = np.nextafter(np.float32(L), np.float32(0))
+    x[60:120] = 0.0
+    v[:120] = np.where(np.arange(120) % 2 == 0, 2.0, -2.0).astype(np.float32)
+    u = (0.05 * np.random.default_rng(12).standard_normal((K, H, m))).astype(np.float32)
+    kw = dict(n_mesh=m, length=L, dt=DT)
+    jfn, tfn = ((jfused_packed_horizon, fs.fused_packed_horizon) if merged
+                else (jfused_kdk_horizon, fs.fused_kdk_horizon))
+    ref = jfn(jnp.asarray(x), jnp.asarray(v), jnp.asarray(u), jnp.asarray(_e_op_t(m).numpy()),
+              interpret=True, **kw)
+    got = tfn(torch.tensor(x), torch.tensor(v), torch.tensor(u), _e_op_t(m), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4)
+
+
+@pytest.mark.parametrize("kind", ["cic", "tsc", "tsc_standard"])
+def test_kernel_tap_sets_cover_every_weight(kind):
+    """The CUDA kernels evaluate only the taps that can carry weight
+    (csrc/shape.cuh::taps): cic b and b+1; tsc b-1 .. b+1, and b+2 where b
+    is -1 or 0; tsc_standard c-1 .. c+1 around c = b + (pos - b >= 0.5),
+    b = floor(pos). In float32, every tap of the 4-tap evaluation b-1 .. b+2
+    that the set leaves out weighs exactly 0, on random positions and on
+    cell edges and half cells an ulp either side."""
+    from plasma_control_tpu_torch.ops.deposit import shape_weights_from_offset
+
+    g = torch.Generator().manual_seed(0)
+    grid_pts = torch.arange(-3, 260, dtype=torch.float32)
+    marks = torch.cat([grid_pts, grid_pts + 0.5])
+    pos = torch.cat([
+        torch.rand(400_000, generator=g) * 263.0 - 3.0,
+        (torch.rand(100_000, generator=g) - 0.5) * 2e-3,
+        marks, torch.nextafter(marks, torch.tensor(-1e9)), torch.nextafter(marks, torch.tensor(1e9)),
+        torch.tensor([1 - 2 ** -24, -(2 ** -24), -(2 ** -30), 2 ** -30]),
+    ])
+    b = torch.floor(pos)
+    if kind == "cic":
+        first, count = b, 2
+    elif kind == "tsc":
+        first, count = b - 1, 3
+    else:
+        first, count = b - 1 + (pos - b >= 0.5).float(), 3
+    edge = (kind == "tsc") & ((b == -1) | (b == 0))
+    for o in range(-1, 3):
+        j = b + o
+        w = shape_weights_from_offset(pos - j, kind)
+        kept = ((j >= first) & (j < first + count)) | (edge & (o == 2))
+        assert int(((w != 0) & ~kept).sum()) == 0, (o, pos[(w != 0) & ~kept][:5])
+
+
 def test_explicit_and_merged_horizons_agree():
     """Kernels 5 and 6 have one contract: the merged kick reassociates the two
     half-kicks, so the energies agree to rtol 2e-4."""

@@ -8,8 +8,10 @@ them there with
 """
 
 import dataclasses
+import hashlib
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,8 +49,8 @@ def gen(dev):
 @pytest.mark.parametrize("b", [1, 4])
 @pytest.mark.parametrize("kind", KINDS)
 def test_deposit_matches_plain(dev, gen, kind, b):
-    """fp32 atomics in varying order: rtol 1e-5, atol 1e-4; charge is
-    conserved to 1e-5 relative."""
+    """Exact fixed-point sums against the plain version's fp32 sums: rtol
+    1e-5, atol 1e-4; charge is conserved to 1e-5 relative."""
     x = torch.rand((b, N), generator=gen, device=dev) * L
     before = cic.deposit_cic.launches
     got = cic.deposit_cic(x, M, L, kind)
@@ -120,11 +122,119 @@ def test_gather_is_one_device_op(dev, gen, tmp_path):
     assert len(names) == 1 and "gather_kernel" in names[0], names
 
 
+# kernel 2's shapes on the main paths: the spectral and grid slices'
+# environment, and the config-4 / twin environment
+DEPOSIT_SHAPES = [(5000, 250), (100_000, 256)]
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("kind", KINDS)
+def test_deposit_wraps_and_scales_like_plain(dev, gen, kind, b):
+    """Positions in [-L, 2L), wrapped in the kernel as torch.remainder wraps
+    them, and the normalisation n0 L / N / dx applied in the kernel: rtol
+    1e-5, atol 1e-4 against the plain version."""
+    x = torch.rand((b, N), generator=gen, device=dev) * (3 * L) - L
+    scale = L / N / (L / M)
+    got = cic.deposit_cic(x, M, L, kind, scale=scale)
+    torch.testing.assert_close(got, cic.deposit_cic_plain(x, M, L, kind, scale=scale),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,m", DEPOSIT_SHAPES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_deposit_is_deterministic(dev, gen, kind, n, m):
+    """Fixed-point counts: two launches give bitwise equal densities."""
+    x = torch.rand((1, n), generator=gen, device=dev) * (3 * L) - L
+    first = cic.deposit_cic(x, m, L, kind)
+    assert torch.equal(first, cic.deposit_cic(x, m, L, kind))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_deposit_is_the_same_at_every_cluster_size(dev, gen, kind):
+    """At N=100000 the wrapper may choose any cluster of 1-16 CTAs per row:
+    every size gives bitwise the same row, within rtol 1e-5, atol 1e-4 of
+    the plain version."""
+    n, m = DEPOSIT_SHAPES[1]
+    x = torch.rand((1, n), generator=gen, device=dev) * (3 * L) - L
+    assert cic.deposit_cluster(n, 1, dev.index or 0) in (1, 2, 4, 8, 16)
+    one = cic._deposit_cuda(x, m, L, kind, 1.0, 1)
+    for c in (2, 4, 8, 16):
+        assert torch.equal(cic._deposit_cuda(x, m, L, kind, 1.0, c), one), c
+    torch.testing.assert_close(one, cic.deposit_cic_plain(x, m, L, kind), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,m", DEPOSIT_SHAPES)
+def test_deposit_is_one_device_op(dev, gen, tmp_path, n, m):
+    """deposit(method="pallas") on unwrapped positions with the
+    normalisation: one kernel on the card and nothing else (no remainder,
+    no memset, no multiply), as close to the dense method as the dense
+    tests hold it (rtol 1e-5, atol 1e-4)."""
+    x = torch.rand((1, n), generator=gen, device=dev) * (3 * L) - L
+    grid = make_grid(m, L, device=dev)
+    before = cic.deposit_cic.launches
+    got = dep.deposit(x, grid, n0=1.3, method="pallas")
+    assert cic.deposit_cic.launches == before + 1
+    names = _device_ops(lambda: dep.deposit(x, grid, n0=1.3, method="pallas"), tmp_path)
+    assert len(names) == 1 and "deposit_kernel" in names[0], names
+    if n <= 5000:
+        torch.testing.assert_close(got, dep.deposit(x, grid, n0=1.3, method="dense"),
+                                   rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got, dep.deposit(x, grid, n0=1.3, method="scatter"),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_deposit_rows_and_mesh_limit(dev, gen, kind):
+    """Batched rows on gridDim.y (a (2, 3, N) batch, 700 short rows) and the
+    mesh at its limit of 12288 cells (96 KB of counts per CTA), against the
+    plain version; beyond the limit the wrapper raises."""
+    for shape, m in (((2, 3, 3000), M), ((700, 64), 32), ((2, 20_000), 12288)):
+        x = torch.rand(shape, generator=gen, device=dev) * L
+        got = cic.deposit_cic(x, m, L, kind)
+        assert got.shape == shape[:-1] + (m,)
+        torch.testing.assert_close(got, cic.deposit_cic_plain(x, m, L, kind), rtol=1e-5, atol=1e-4)
+        assert torch.equal(got, cic.deposit_cic(x, m, L, kind))
+    with pytest.raises(ValueError):
+        cic.deposit_cic(x, 12289, L, kind)
+
+
 def test_deposit_wrap_edge(dev):
     x = torch.tensor([L * (1 - 1e-7), 0.0, 0.1, L - 0.1], device=dev)
     for kind in KINDS:
         torch.testing.assert_close(cic.deposit_cic(x, M, L, kind), cic.deposit_cic_plain(x, M, L, kind),
                                    rtol=0.0, atol=1e-6)
+
+
+# sha256 of the gather kernel's float32 output on _fixed_gather_input, per
+# kind, as the kernel computed it before its cell wrap became a compare and
+# an add and its position wrap skipped fmodf where that is exact (NVIDIA H100
+# 80GB HBM3): neither change may alter one bit
+GATHER_SHA256 = {
+    "cic": "7edc3857c570225435f061f3a679911526ce77813e287994440d84b0e2e0cdac",
+    "tsc": "535accd6fa65c28b20f74032cedb1f8a210c1d10152b7bbb58b149e7570bcccf",
+    "tsc_standard": "999aba1608ad82a9461928a0f2d18cbb58a700ce8a3bc397f82bb0e0909aba83",
+}
+
+
+def _fixed_gather_input():
+    """(3, 2000) positions in [-L, 2L) with the wrap's edge cases in front,
+    and one (M,) field, made from a seed."""
+    r = np.random.default_rng(2024)
+    x = r.uniform(-L, 2 * L, (3, 2000)).astype(np.float32)
+    f32 = np.float32
+    edges = np.array([0.0, -0.0, L, -L, 2 * L, np.nextafter(f32(L), f32(0)),
+                      np.nextafter(f32(0), f32(-1)), np.nextafter(f32(2 * L), f32(0)),
+                      np.nextafter(f32(-L), f32(0)), np.nextafter(f32(-L), f32(-1e9)), 3 * L,
+                      -2.5 * L, L / M * 17, np.nextafter(f32(L / M * 17), f32(0))], f32)
+    x[:, :len(edges)] = edges
+    return x, r.standard_normal(M).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_gather_bits_unchanged(dev, kind):
+    x, e = _fixed_gather_input()
+    got = cic.gather_cic(torch.tensor(e, device=dev), torch.tensor(x, device=dev), M, L, kind)
+    assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == GATHER_SHA256[kind]
 
 
 @pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
@@ -401,11 +511,11 @@ def _assert_energies_close(got, ref, kind):
     "tsc" weight jumps at the cell offsets 0, 1 and 2, so a particle that
     lands an ulp either side of a cell edge moves a weight of 0.375 into the
     next cell. At the slice's shapes one particle (candidate 49, step 6)
-    lies 1 ulp from an edge; both deposits sum in atomic order, so the kernel
-    and the plain version each put it on either side from run to run, and
-    that step's energy then differs by 4.9e-4 relative (the kernel missed in
-    48 of 100 runs on the H100). For that kind at most 1 in 1000 energies
-    may miss rtol 2e-4, and none misses rtol 1e-2."""
+    lies 1 ulp from an edge; the kernel and the plain version sum in other
+    orders and may put it on either side, and that step's energy then
+    differs by 4.9e-4 relative (the kernel missed in 48 of 100 runs on the
+    H100 while its deposit summed in atomic order). For that kind at most 1
+    in 1000 energies may miss rtol 2e-4, and none misses rtol 1e-2."""
     if kind != "tsc":
         torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6)
         return
@@ -434,6 +544,20 @@ def test_grid_horizons_match_plain(dev, gen, n, m, k, h, kind):
     # lands on the other side of a cell edge moves one step's energy by ~5e-4
     # relative over H=10: held, as the experiments hold it, on horizon sums
     torch.testing.assert_close(packed.sum(-1), kdk.sum(-1), rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_grid_kernels_are_deterministic(dev, gen, kind):
+    """Fixed-point deposits, a warp-spread solve and energy sums in a fixed
+    order: two launches of kernels 4, 5 and 6 give bitwise equal results at
+    the grid slice's plan model."""
+    n, m, k, h = GRID_SHAPES[0]
+    x, v, u, eop = _grid_inputs(gen, dev, n, m, k, h, batched=True)
+    kw = dict(n_mesh=m, length=L, dt=0.1, kind=kind)
+    for fn in (fs.fused_kdk_horizon, fs.fused_packed_horizon):
+        assert torch.equal(fn(x[0], v[0], u, eop, **kw), fn(x[0], v[0], u, eop, **kw)), fn
+    one, two = (fs.fused_leapfrog_step(x, v, u[:, 0], eop, **kw) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 @pytest.mark.parametrize("plan_integrator", ["kdk", "leapfrog", "env"])

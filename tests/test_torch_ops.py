@@ -161,6 +161,54 @@ def test_cic_plain_at_the_wrap_edge():
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("normalize", [True, False], ids=["normalized", "raw"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_pallas_deposit_wraps_and_normalizes_like_jax(rng, kind, normalize):
+    """deposit(method="pallas") on positions in [-L, 2L): the port wraps and
+    scales inside the kernel (on the CPU its plain version), the JAX package
+    wraps with jnp.mod before its Pallas kernel (interpret mode) and
+    multiplies after it. Same bar as the Pallas tests above: rtol 1e-5, atol
+    1e-4."""
+    x = rng.uniform(-L, 2 * L, 700).astype(np.float32)
+    ref = jdep.deposit(jnp.asarray(x), jmake_grid(M, L), n0=1.3, kind=kind, method="pallas",
+                       normalize=normalize)
+    got = tdep.deposit(_t(x), tmake_grid(M, L, device="cpu"), n0=1.3, kind=kind,
+                       method="pallas", normalize=normalize)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_cic_plain_scale_matches_pallas_kernel(rng, kind):
+    """deposit_cic with a scale (the caller's normalisation, applied by the
+    kernel) against the Pallas TPU kernel's density times the same scale,
+    batched (B, N): rtol 1e-5, atol 1e-4."""
+    x = rng.uniform(0, L, (4, 512)).astype(np.float32)
+    scale = 1.3 * L / 512 / (L / M)
+    ref = deposit_cic_pallas(jnp.asarray(x), M, L, block_n=256, interpret=True, kind=kind) * scale
+    for fn in (cic.deposit_cic, cic.deposit_cic_plain):
+        np.testing.assert_allclose(fn(_t(x), M, L, kind, scale=scale).numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_pallas_deposit_at_the_wrap_edges(rng, kind):
+    """x = L - ulp stays below L, x = L wraps to 0 and x = -ulp to L - 0 = L
+    after rounding, which lands on cell 0 as pos = M: the port wraps with
+    torch.remainder's arithmetic (the kernel: fmodf or its exact shortcuts),
+    the JAX package with jnp.mod, the same float32 positions. Against the
+    JAX package's pallas deposit, normalised and not: rtol 1e-5, atol 1e-4."""
+    f32 = np.float32
+    edges = np.array([np.nextafter(f32(L), f32(0)), L, np.nextafter(f32(0), f32(-1)),
+                      -np.nextafter(f32(L), f32(0)), np.nextafter(f32(2 * L), f32(0)), 0.0], f32)
+    x = np.concatenate([np.repeat(edges, 5), rng.uniform(0, L, 97).astype(f32)])
+    for normalize in (True, False):
+        ref = jdep.deposit(jnp.asarray(x), jmake_grid(M, L), kind=kind, method="pallas",
+                           normalize=normalize)
+        got = tdep.deposit(_t(x), tmake_grid(M, L, device="cpu"), kind=kind, method="pallas",
+                           normalize=normalize)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros(8, device="meta")
     with pytest.raises(RuntimeError):
