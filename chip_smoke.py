@@ -32,7 +32,14 @@ any failure exits non-zero:
    trajectory; kernel 1's global-scratch variant, both energies and drifts,
    at N=320000, beyond what a cluster of 16 CTAs holds; two launches of
    kernel 1 bitwise equal; the gather beside ``grid_sample``, the one
-   PyTorch call that computes it;
+   PyTorch call that computes it; kernel 1 and its corrected variant beyond
+   16 modes (Km=32 over 16 drive modes, both drifts) in shared memory
+   (N=20000) and in the global scratch (N=1M, the million-particle solve's
+   chunk); kernels 4-6 beyond 3631 cells (M=4096, mesh arrays in a global
+   scratch, every kind) and the grid planner's costs on a 4096-cell plan
+   model (``[mesh]``, counted); kernel 3 at N=100000 and N=1M against its
+   plain version, bitwise equal to its one-particle-per-thread reading, in
+   turns with ``grid_sample``;
 4. run the control loops, each with every launch count set to 0 just before
    it and read just after:
    a. the spectral slice, the repo's headline MPC configuration
@@ -63,6 +70,15 @@ any failure exits non-zero:
    g. the port's entry point, ``plasma_control_tpu_torch.run_mpc.main`` with
       the twin slice's flags, ``--t_max 5`` and the CLI's dense deposit: 50
       control steps, the replay, the cost traces and the saved run;
+   h. three control steps of the repo's million-particle 32-mode controller
+      (``experiments/million_r5.py:51-53,118-121``, unreduced: two-stream,
+      N=1M, M=256, scatter deposit, 16 actuated modes at +-2, K=384 in
+      chunks of 16, H=10, Km=32), 24 launches of kernel 1's blocked variant
+      per solve; then that launch against its plain version, one chunk's
+      costs on the card against the CPU, and a three-step uncontrolled push
+      of its state on kernels 2-3;
+   i. three control steps of the twin slice at ``plan_modes=32``: kernel
+      1c beyond 16 modes, one launch per solve;
 5. check one candidate block and a three-step closed loop on the card
    against the same computation on the CPU, where every wrapper runs its
    plain version: the spectral slice from its initial state; the grid slice
@@ -120,6 +136,18 @@ TWIN_FLAGS = ["--simcase", "two-stream", "--num_particle", "100000", "--num_mesh
               "--max_mode", "8", "--n_candidates", "1024", "--plan_particles", "10000",
               "--plan_mesh", "64", "--plan_correction", "twin"]
 ENTRY_STEPS = 50  # --t_max 5 at dt 0.1
+# the repo's million-particle 32-mode controller, unreduced
+# (experiments/million_r5.py:51-53, 118-121, fullfid_K384_wt4_wraw05_cm2_mm16):
+# two-stream, N=1M, M=256, scatter deposit; 16 actuated modes at +-2; K=384
+# in chunks of 16, H=10, Km=32, w_input 0.0025, w_terminal 4, full fidelity
+MILLION_SIM = dict(simcase="two-stream", n_particles=1_000_000, n_mesh=256, dt=0.1, t_max=50.0,
+                   length=50.0, deposit_method="scatter")
+MILLION_CTRL = dict(max_mode=16, coeff_min=-2.0, coeff_max=2.0)
+MILLION_MPC = dict(n_candidates=384, w_input=0.0025, horizon=10, plan_modes=32, plan_chunk=16,
+                   w_terminal=4.0)
+MILLION_STEPS = 3
+# kernels 4-6 beyond 3631 cells: the grid slice's plan particles on 4096 cells
+WIDE_MESH = dict(n=1250, m=4096, k=8, h=4)
 
 # published peaks of one H100 SXM at 700 W: fp32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -206,6 +234,24 @@ def grid_horizon_ops(k: int, h: int, n: int, m: int, merged: bool) -> float:
     the drive fields and energy (4 M)."""
     per_particle = TAPS_OPS + (8 + 3 if merged else 16 + 6) + 4 + DEPOSIT_OPS
     return DEPOSIT_OPS * n + solve_ops(m) + k * (m + h * (per_particle * n + solve_ops(m) + 4 * m))
+
+
+def queued_ms(torch, fn, reps: int = 10) -> float:
+    """Milliseconds per call of ``fn`` launched ``reps`` times back to back
+    between two CUDA events: the device time of a call whose kernel runs far
+    longer than its host path takes to launch it (the launches queue up, so
+    the device never waits on the host after the first)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def device_ms(torch, fn, kernel: str | None, reps: int = 20) -> tuple[float, float]:
@@ -583,12 +629,13 @@ def check_grid_kernels(torch, rows: dict) -> None:
             f"plain {rows[name]['plain_ms']:.4f} ms per call")
 
 
-def _setup(torch, device, sim=SIM, max_mode=MAX_MODE, mpc=MPC):
+def _setup(torch, device, sim=SIM, max_mode=MAX_MODE, mpc=MPC, ctrl=None):
     from plasma_control_tpu_torch.config import ControlConfig, MPCConfig, SimConfig
     from plasma_control_tpu_torch.control.actuator import make_actuator
     from plasma_control_tpu_torch.ops.grid import make_grid
 
-    cfg, ctrl, mpc = SimConfig(**sim), ControlConfig(max_mode=max_mode), MPCConfig(**mpc)
+    cfg, mpc = SimConfig(**sim), MPCConfig(**mpc)
+    ctrl = ControlConfig(**(ctrl or dict(max_mode=max_mode)))
     grid = make_grid(cfg.n_mesh, cfg.length, device=device)
     act = make_actuator(cfg.length, cfg.n_mesh, ctrl.max_mode, device=device)
     return cfg, ctrl, mpc, grid, act
@@ -655,6 +702,219 @@ def _kernel_fns() -> dict:
 def _reset(fns: dict) -> None:
     for fn, attr in fns.values():
         setattr(fn, attr, 0)
+
+
+def check_wide_modes(torch) -> None:
+    """Phase 3, fifth part: kernel 1 beyond 16 modes (its blocked variant)
+    at Km=32 over 16 drive modes, both drifts, the plain and the corrected
+    energy, with the state in shared memory (N=20000, K=64, H=10, clusters
+    of 4 CTAs) and in the global scratch (the million-particle solve's
+    chunk: N=1M, K=16, H=10), against the plain version to rtol 2e-4; two
+    launches bitwise equal; device times."""
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    length, km, ka, h = SIM["length"], 32, 16, 10
+    for n, k in ((20_000, 64), (MILLION_SIM["n_particles"], MILLION_MPC["plan_chunk"])):
+        x = torch.rand(n, generator=gen, device=dev) * length
+        v = 1.5 * torch.randn(n, generator=gen, device=dev)
+        cand = 0.6 * torch.randn((k, h, 2 * ka), generator=gen, device=dev)
+        tc, ts = (n ** 0.5 * torch.randn((h, km), generator=gen, device=dev) for _ in range(2))
+        for rot in (True, False):
+            geo = sh.launch_geometry(n, rot, km)
+            require((geo.shared_bytes > 0) == (n == 20_000), f"N={n}, Km={km}: {geo}")
+            for twin in (False, True):
+                kw = dict(length=length, dt=0.1, n0=1.0, n_particles=n, rot=rot, n_modes=km,
+                          twin_c=tc if twin else None, twin_s=ts if twin else None)
+                call = lambda: sh.spectral_horizon(x, v, cand[..., :ka], cand[..., ka:], **kw)  # noqa: E731
+                got = call()
+                ref = sh.spectral_horizon_plain(x, v, cand[..., :ka], cand[..., ka:], **kw)
+                torch.cuda.synchronize()
+                what = f"Km={km} N={n} rot={rot} twin={twin}"
+                require(bool(torch.isfinite(got).all()), f"spectral_horizon {what}: non-finite")
+                require(torch.allclose(got, ref, rtol=2e-4, atol=1e-6), f"spectral_horizon {what}")
+                require(torch.equal(got, call()), f"spectral_horizon {what}: two launches differ")
+                rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+                dev_ms, ops = device_ms(torch, call, "spectral_horizon", reps=5)
+                require(ops == 1, f"spectral_horizon {what}: {ops:.3g} device ops per call")
+                b = bound(spectral_ops(k, h, n, km, rot), spectral_bytes(k, h, n, km, twin))
+                plain = lambda: sh.spectral_horizon_plain(  # noqa: E731
+                    x, v, cand[..., :ka], cand[..., ka:], **kw)
+                log(f"[km32] spectral_horizon{'_twin' if twin else ''} {'rot' if rot else 'trig'}, "
+                    f"{geo}: K={k}, H={h}, Km={km} over Ka={ka}, N={n}: max rel {rel:.3g} (rtol "
+                    f"2e-4), two launches bitwise equal; kernel {time_ms(torch, call, reps=5):.4f} "
+                    f"ms, device {dev_ms:.5f} ms per launch, one device op per call, plain "
+                    f"{time_ms(torch, plain, reps=2):.4f} ms; bound {b['bound_ms']:.6f} ms "
+                    f"({b['bound_by']}) = {100 * b['bound_ms'] / dev_ms:.2f} %")
+
+
+def check_wide_mesh(torch, rows: dict) -> None:
+    """Phase 3, sixth part: kernels 4-6 beyond 3631 cells, their mesh arrays
+    in a global scratch: the grid slice's plan particles on 4096 cells (K=8,
+    H=4, N=1250), every kind, against the plain versions at the bars of the
+    64-cell checks, two launches bitwise equal; then the grid planner's
+    candidate costs on a 4096-cell plan model with kernels 6 and 4
+    (``[mesh]``, launch counts set to 0 before and read after), and each
+    kernel timed."""
+    from plasma_control_tpu_torch.config import MPCConfig, SimConfig
+    from plasma_control_tpu_torch.control.actuator import make_actuator
+    from plasma_control_tpu_torch.control.mpc import candidate_costs
+    from plasma_control_tpu_torch.models.pic import PlasmaState
+    from plasma_control_tpu_torch.ops.grid import make_grid
+    from plasma_control_tpu_torch.ops.kernels import fused_step as fs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    n, m, k, h = (WIDE_MESH[key] for key in ("n", "m", "k", "h"))
+    length = SIM["length"]
+    require(not fs._layout(n, m).mesh, f"M={m}: {fs._layout(n, m)}")
+    grid = make_grid(m, length, device=dev)
+    eop = grid.e_op.T.contiguous()
+    xb = torch.rand((k, n), generator=gen, device=dev) * length
+    vb = torch.randn((k, n), generator=gen, device=dev)
+    u = 0.05 * torch.randn((k, h, m), generator=gen, device=dev)
+    kw = dict(n_mesh=m, length=length, dt=SIM["dt"])
+    x0, v0 = xb[0].contiguous(), vb[0].contiguous()
+    errs = {name: 0.0 for name in ("fused_leapfrog_step", "fused_kdk_horizon",
+                                   "fused_packed_horizon")}
+    for kind in KINDS:
+        got = fs.fused_leapfrog_step(xb, vb, u[:, 0], eop, kind=kind, **kw)
+        ref = fs.fused_leapfrog_step_plain(xb, vb, u[:, 0], eop, kind=kind, **kw)
+        torch.cuda.synchronize()
+        dx = torch.remainder(got[0] - ref[0] + length / 2, length) - length / 2
+        require(bool((dx.abs() <= 1e-4 + 1e-5 * ref[0].abs()).all()), f"M={m} leapfrog {kind}: x")
+        require(torch.allclose(got[1], ref[1], rtol=1e-5, atol=1e-4), f"M={m} leapfrog {kind}: v")
+        pe_got, pe_ref = ((e.double() ** 2).sum(-1) for e in (got[2], ref[2]))
+        require(torch.allclose(pe_got, pe_ref, rtol=1e-4, atol=1e-9), f"M={m} leapfrog {kind}: PE")
+        again = fs.fused_leapfrog_step(xb, vb, u[:, 0], eop, kind=kind, **kw)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)), f"M={m} leapfrog {kind}: repeat")
+        errs["fused_leapfrog_step"] = max(errs["fused_leapfrog_step"], float(dx.abs().max()),
+                                          float((got[1] - ref[1]).abs().max()))
+        for name, plain in (("fused_kdk_horizon", fs.fused_kdk_horizon_plain),
+                            ("fused_packed_horizon", fs.fused_packed_horizon_plain)):
+            fn = getattr(fs, name)
+            got, ref = fn(x0, v0, u, eop, kind=kind, **kw), plain(x0, v0, u, eop, kind=kind, **kw)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(got).all()), f"M={m} {name} {kind}: non-finite")
+            require(torch.equal(got, fn(x0, v0, u, eop, kind=kind, **kw)),
+                    f"M={m} {name} {kind}: two launches differ")
+            miss = int(((got - ref).abs() > 1e-6 + 2e-4 * ref.abs()).sum())
+            require(miss <= (got.numel() // 1000 if kind == "tsc" else 0),
+                    f"M={m} {name} {kind}: {miss} energies beyond rtol 2e-4")
+            require(torch.allclose(got, ref, rtol=1e-2, atol=1e-6), f"M={m} {name} {kind}")
+            errs[name] = max(errs[name], float((got - ref).abs().max()))
+    log(f"[mesh] kernels 4-6 at M={m} (mesh arrays in a global scratch), K={k}, H={h}, N={n}, "
+        f"3 kinds: max |err| {errs} (leapfrog rtol 1e-5 / atol 1e-4, field energy rtol 1e-4; "
+        f"horizons rtol 2e-4); two launches bitwise equal")
+
+    # the grid planner on a 4096-cell plan model: one candidate block through
+    # kernel 6 (kdk) and through H launches of kernel 4 (leapfrog)
+    cfg = SimConfig(simcase="bump-on-tail", n_particles=n, n_mesh=m, dt=SIM["dt"], t_max=5.0,
+                    length=length)
+    act = make_actuator(length, m, MAX_MODE, device=dev)
+    st = PlasmaState(x0, v0)
+    cand = torch.clamp(0.3 * torch.randn((k, h, 2 * MAX_MODE), generator=gen, device=dev), -1, 1)
+    mpcs = {integrator: MPCConfig(horizon=h, n_candidates=k, plan_model="grid",
+                                  plan_integrator=integrator) for integrator in ("kdk", "leapfrog")}
+    fns = _kernel_fns()
+    _reset(fns)
+    costs = {integrator: candidate_costs(st, cand, grid, cfg, mpc, act)
+             for integrator, mpc in mpcs.items()}
+    kdk_costs = candidate_costs(st, cand, grid, cfg, mpcs["kdk"], act)
+    launches = _counts(fns)
+    require(launches["fused_packed_horizon"] == 2 and launches["fused_leapfrog_step"] == h,
+            f"[mesh] launches {launches}")
+    require(torch.equal(kdk_costs, costs["kdk"]), "[mesh] kernel 6 costs repeat")
+    for integrator, c in costs.items():
+        require(bool(torch.isfinite(c).all()), f"[mesh] {integrator} costs not finite")
+    log(f"[mesh] grid planner costs on the {m}-cell plan model, K={k}, H={h}: launches {launches}; "
+        f"kdk {costs['kdk'].tolist()}, leapfrog {costs['leapfrog'].tolist()}")
+    # explicit KDK (kernel 5) has no caller: one launch counted here
+    _reset(fns)
+    fs.fused_kdk_horizon(x0, v0, act.compute_e_packed(cand), eop, **kw)
+    kdk_launches = _counts(fns)["fused_kdk_horizon"]
+
+    leapfrog_ops = k * ((2 * 2 + 2 * 2 + 2 * DEPOSIT_OPS + GATHER_OPS + 3) * n + 2 * solve_ops(m) + m)
+    entries = (
+        ("fused_leapfrog_step_m4096", lambda: fs.fused_leapfrog_step(xb, vb, u[:, 0], eop, **kw),
+         lambda: fs.fused_leapfrog_step_plain(xb, vb, u[:, 0], eop, **kw), "leapfrog_kernel",
+         bound(leapfrog_ops, 4 * (4 * k * n + 2 * k * m + m * m)), launches["fused_leapfrog_step"],
+         errs["fused_leapfrog_step"]),
+        ("fused_kdk_horizon_m4096", lambda: fs.fused_kdk_horizon(x0, v0, u, eop, **kw),
+         lambda: fs.fused_kdk_horizon_plain(x0, v0, u, eop, **kw), "horizon_kernel<false",
+         bound(grid_horizon_ops(k, h, n, m, merged=False), 4 * (2 * n + k * h * m + m * m + k * h)),
+         kdk_launches, errs["fused_kdk_horizon"]),
+        ("fused_packed_horizon_m4096", lambda: fs.fused_packed_horizon(x0, v0, u, eop, **kw),
+         lambda: fs.fused_packed_horizon_plain(x0, v0, u, eop, **kw), "horizon_kernel<true",
+         bound(grid_horizon_ops(k, h, n, m, merged=True), 4 * (2 * n + k * h * m + m * m + k * h)),
+         launches["fused_packed_horizon"], errs["fused_packed_horizon"]),
+    )
+    for name, call, plain, kernel, b, count, err in entries:
+        rows[name].update(launches=count, max_abs_err=err, ms=time_ms(torch, call, reps=10),
+                          plain_ms=time_ms(torch, plain, reps=3), library_ms=None, **b)
+        rows[name]["device_ms"], _ = device_ms(torch, call, kernel, reps=5)
+        log(f"[mesh] {name}: kernel {rows[name]['ms']:.4f} ms, device "
+            f"{rows[name]['device_ms']:.5f} ms, plain {rows[name]['plain_ms']:.4f} ms per call; "
+            f"bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+
+
+def check_gather_large(torch, rows: dict) -> None:
+    """Phase 3, seventh part: kernel 3 at the env step's large shapes (one
+    (M,) field, M=256; N=100000, the twin and config-4 environment, and
+    N=1M, the million-particle environment): against the plain version
+    (atol 1e-5) on positions in [-L, 2L); bitwise equal to the same
+    positions read one particle per thread (a copy at a 4-byte offset, which
+    the kernel reads scalar, as the one-thread-per-particle kernel did);
+    timed in turns with grid_sample, wrapped and on the device."""
+    import torch.nn.functional as F
+
+    from plasma_control_tpu_torch.ops.kernels import cic
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    m, length = CFG4_SIM["n_mesh"], SIM["length"]
+    for name, n in (("gather_cic_100k", CFG4_SIM["n_particles"]),
+                    ("gather_cic_million", MILLION_SIM["n_particles"])):
+        e = torch.randn(m, generator=gen, device=dev)
+        xu = torch.rand((1, n), generator=gen, device=dev) * (3 * length) - length
+        err = 0.0
+        for kind in KINDS:
+            got = cic.gather_cic(e, xu, m, length, kind)
+            ref = cic.gather_cic_plain(e, xu, m, length, kind)
+            shifted = torch.empty(n + 1, device=dev)[1:]
+            shifted.copy_(xu[0])
+            scalar = cic.gather_cic(e, shifted, m, length, kind)
+            torch.cuda.synchronize()
+            require(torch.allclose(got, ref, rtol=0.0, atol=1e-5), f"{name} {kind} vs plain")
+            require(torch.equal(got[0], scalar), f"{name} {kind}: vector and scalar reads differ")
+            err = max(err, float((got - ref).abs().max()))
+        # timed on positions in [0, L), where grid_sample computes the same
+        # function (see check_kernels)
+        x = torch.rand((1, n), generator=gen, device=dev) * length
+        e_pad = torch.cat([e, e[:1]])[None, None, None, :]
+        coords = torch.stack([2.0 * x / length - 1.0, torch.zeros_like(x)], dim=-1)[:, None]
+        call = lambda: cic.gather_cic(e, x, m, length)  # noqa: E731
+        lib = lambda: F.grid_sample(e_pad, coords, mode="bilinear", align_corners=True)  # noqa: E731
+        lib_err = float((lib()[:, 0, 0] - call()).abs().max())
+        require(lib_err <= 1e-4, f"{name}: grid_sample vs the cic gather: max |err| {lib_err}")
+        kern, libr = [], []
+        for _ in range(2):
+            kern.append(time_ms(torch, call))
+            libr.append(time_ms(torch, lib))
+        dev_ms, ops = device_ms(torch, call, "gather_kernel")
+        require(ops == 1, f"{name}: {ops:.3g} device ops per call")
+        lib_dev, _ = device_ms(torch, lib, None)
+        rows[name].update(max_abs_err=err, ms=min(kern), library_ms=min(libr), device_ms=dev_ms,
+                          plain_ms=time_ms(torch, lambda: cic.gather_cic_plain(e, x, m, length),
+                                           reps=10),
+                          **bound(GATHER_OPS * n, 4 * (m + 2 * n)))
+        b = rows[name]
+        log(f"[gather] {name}: N={n}, M={m}, 3 kinds: max |err| {err:.3g} against plain (atol "
+            f"1e-5), bitwise equal to the scalar reading; in turns: kernel {kern} ms, grid_sample "
+            f"{libr} ms per call; device {dev_ms:.5f} ms (grid_sample {lib_dev:.5f} ms); bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']}) = {100 * b['bound_ms'] / dev_ms:.2f} % on "
+            f"the device; plain {b['plain_ms']:.4f} ms")
 
 
 def run_slice(torch, rows: dict) -> None:
@@ -884,6 +1144,176 @@ def run_config4(torch) -> None:
         f"{b['bound_ms']:.6f} ms ({b['bound_by']}, {b['ops']:.4g} operations)")
 
 
+def run_million(torch, rows: dict) -> None:
+    """Phase 4h: three control steps of the million-particle 32-mode
+    controller (MILLION_*: N=1M, K=384 in 24 chunks of 16, H=10, Km=32 over
+    16 actuated modes, rot drift), kernel 1's blocked variant with its state
+    in the global scratch, 24 launches per solve; then kernel 1 against its
+    plain version on one chunk of the path's candidates, one chunk's costs
+    on the card against the CPU's plain version, and a three-step
+    uncontrolled push of the end state on kernels 2-3 (the env step at N=1M
+    with deposit_method="pallas"), for kernel 3's launches at this size."""
+    import dataclasses
+
+    from plasma_control_tpu_torch.control.mpc import candidate_costs, draw_noise, mpc_rollout
+    from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
+    from plasma_control_tpu_torch.models.rollout import rollout
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+    dev = torch.device("cuda")
+    cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=MILLION_SIM, mpc=MILLION_MPC,
+                                       ctrl=MILLION_CTRL)
+    rot = sh.use_rot(cfg.clamped_dt(), cfg.length, mpc.spectral_drift)
+    ka, km = ctrl.max_mode, max(mpc.plan_modes, ctrl.max_mode)
+    geo = sh.launch_geometry(cfg.n_particles, rot, km)
+    require(rot and geo.cluster == 16 and geo.shared_bytes == 0, f"million launch geometry {geo}")
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    chunks = -(-mpc.n_candidates // mpc.plan_chunk)
+    fns = _kernel_fns()
+    _reset(fns)
+    mean, times, pes = None, [], []
+    for _ in range(MILLION_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mpc_rollout(state, grid, cfg, ctrl, mpc, act, gen, n_steps=1, mean0=mean)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        state, mean = out.final_state, out.final_mean
+        pes.append(float(out.field_energy[0]))
+    launches = _counts(fns)
+    rows["spectral_horizon_million"]["launches"] = launches["spectral_horizon"]
+    log(f"[million] {MILLION_STEPS} control steps at N={cfg.n_particles}, M={cfg.n_mesh}, "
+        f"K={mpc.n_candidates} in chunks of {mpc.plan_chunk}, H={mpc.horizon}, Km={km} over "
+        f"{ka} actuated modes at +-{ctrl.coeff_max}, {'rot' if rot else 'trig'} drift, {geo}; "
+        f"launches {launches}")
+    require(launches["spectral_horizon"] == chunks * MILLION_STEPS,
+            f"{chunks} spectral_horizon launches per solve")
+    require(launches["spectral_horizon_twin"] == 0, "no corrected launch at full fidelity")
+    require(all(math.isfinite(pe) for pe in pes), f"million PE not finite: {pes}")
+    log(f"[million] ms per control step: {', '.join(f'{t:.4f}' for t in times)} (the first "
+        f"includes one-time set-up); PE {pes}")
+
+    # kernel 1 at the path's shape: one chunk of one solve's clipped
+    # candidates, as candidate_costs hands them over ((K, H, Ka) views,
+    # padded to Km in the kernel), against its plain version to rtol 2e-4
+    cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, mpc.horizon, 2 * ka, device=dev),
+                       ctrl.coeff_min, ctrl.coeff_max)[:mpc.plan_chunk]
+    kw = dict(length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, n_particles=cfg.n_particles,
+              rot=rot, n_modes=km)
+    call = lambda: sh.spectral_horizon(state.x, state.v, cand[..., :ka], cand[..., ka:], **kw)  # noqa: E731
+    plain = lambda: sh.spectral_horizon_plain(state.x, state.v, cand[..., :ka], cand[..., ka:],  # noqa: E731
+                                              **kw)
+    got, ref = call(), plain()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), "million spectral_horizon: non-finite PE")
+    require(torch.allclose(got, ref, rtol=2e-4, atol=1e-6), "million spectral_horizon vs plain")
+    err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+    k, h = cand.shape[:2]
+    # ~10 ms per launch: its device time from launches queued back to back
+    # (the profiler's window has dropped launches of this call; [km32] holds
+    # the same shape's profiler time and one device op per call)
+    dev_ms = queued_ms(torch, call)
+    rows["spectral_horizon_million"].update(
+        max_abs_err=err, device_ms=dev_ms, ms=time_ms(torch, call, reps=10),
+        plain_ms=time_ms(torch, plain, reps=2), library_ms=None,
+        **bound(spectral_ops(k, h, cfg.n_particles, km, rot),
+                spectral_bytes(k, h, cfg.n_particles, km, twin=False)),
+    )
+    b = rows["spectral_horizon_million"]
+    log(f"[million] spectral_horizon at the path's shapes (K={k}, H={h}, Km={km}, N="
+        f"{cfg.n_particles}): max |err| {err:.3g}, max rel {rel:.3g} (rtol 2e-4); kernel "
+        f"{b['ms']:.4f} ms, device {dev_ms:.5f} ms (launches queued back to back), plain "
+        f"{b['plain_ms']:.4f} ms; bound "
+        f"{b['bound_ms']:.6f} ms ({b['bound_by']}, {b['ops']:.4g} operations) = "
+        f"{100 * b['bound_ms'] / dev_ms:.2f} % on the device")
+
+    # one chunk's costs on the card against the CPU, where the wrapper runs
+    # the plain version (plan_kernel="fused": the kernel's rot arithmetic)
+    cpu_cfg, cpu_ctrl, cpu_mpc, cpu_grid, cpu_act = _setup(torch, "cpu", sim=MILLION_SIM,
+                                                           mpc=MILLION_MPC, ctrl=MILLION_CTRL)
+    cpu_mpc = dataclasses.replace(cpu_mpc, plan_kernel="fused")
+    c_gpu = candidate_costs(state, cand, grid, cfg, mpc, act).cpu()
+    t0 = time.perf_counter()
+    c_cpu = candidate_costs(PlasmaState(state.x.cpu(), state.v.cpu()), cand.cpu(), cpu_grid,
+                            cpu_cfg, cpu_mpc, cpu_act)
+    cpu_s = time.perf_counter() - t0
+    require(torch.allclose(c_gpu, c_cpu, rtol=2e-4), "million chunk costs: card vs CPU plain")
+    log(f"[million] card vs CPU plain, one chunk of {k} candidates at Km={km}: costs max rel "
+        f"{float(((c_gpu - c_cpu).abs() / c_cpu.abs()).max()):.3g} (rtol 2e-4); the CPU took "
+        f"{cpu_s:.1f} s")
+
+    # the env step at N=1M on kernels 2-3
+    push_cfg = dataclasses.replace(cfg, deposit_method="pallas")
+    _reset(fns)
+    push = rollout(state, grid, push_cfg, n_steps=MILLION_STEPS)
+    torch.cuda.synchronize()
+    launches = _counts(fns)
+    rows["gather_cic_million"]["launches"] = launches["gather_cic"]
+    require(launches["gather_cic"] == 3 * MILLION_STEPS, "three gathers per Yoshida-4 step")
+    require(bool(torch.isfinite(push.field_energy).all()), "million push PE not finite")
+    log(f"[million] {MILLION_STEPS}-step uncontrolled push at N={cfg.n_particles} on kernels 2-3: "
+        f"launches {launches}, PE {push.field_energy.tolist()}")
+
+
+def run_twin_km32(torch, rows: dict) -> None:
+    """Phase 4i: three control steps of the twin slice with plan_modes=32
+    (the corrected variant beyond 16 modes: K=1024, a 10000-particle plan
+    state, clusters of 2 CTAs, shared memory), one corrected launch per
+    solve; then that launch against its plain version, timed."""
+    from plasma_control_tpu_torch.control.mpc import _pad_modes, draw_noise, mpc_rollout
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+    dev = torch.device("cuda")
+    cfg, ctrl, mpc, grid, act = _twin_setup(torch, dev, plan_modes=32)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    fns = _kernel_fns()
+    _reset(fns)
+    mean, times = None, []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mpc_rollout(state, grid, cfg, ctrl, mpc, act, gen, n_steps=1, mean0=mean)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        state, mean = out.final_state, out.final_mean
+        require(bool(torch.isfinite(out.field_energy).all()), "twin Km=32: PE not finite")
+    launches = _counts(fns)
+    rows["spectral_horizon_twin_km32"]["launches"] = launches["spectral_horizon_twin"]
+    require(launches["spectral_horizon_twin"] == launches["spectral_horizon"] == 3,
+            f"one corrected launch per solve: {launches}")
+    pst, _, pcfg, mpc, (tc, ts), _ = _twin_plan(torch, state, dev, plan_modes=32)
+    ka, km = ctrl.max_mode, max(mpc.plan_modes, ctrl.max_mode)
+    k, h, n = mpc.n_candidates, mpc.horizon, pcfg.n_particles
+    rot = sh.use_rot(pcfg.clamped_dt(), pcfg.length, mpc.spectral_drift)
+    cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, h, 2 * ka, device=dev), -1.0, 1.0)
+    u_c, u_s = _pad_modes(cand[..., :ka], km), _pad_modes(cand[..., ka:], km)
+    kw = dict(length=pcfg.length, dt=pcfg.clamped_dt(), n0=pcfg.n0, n_particles=n, rot=rot,
+              twin_c=tc, twin_s=ts)
+    call = lambda: sh.spectral_horizon(pst.x, pst.v, u_c, u_s, **kw)  # noqa: E731
+    got, ref = call(), sh.spectral_horizon_plain(pst.x, pst.v, u_c, u_s, **kw)
+    torch.cuda.synchronize()
+    require(torch.allclose(got, ref, rtol=2e-4, atol=1e-6), "twin Km=32 corrected vs plain")
+    dev_ms, _ = device_ms(torch, call, "spectral_horizon", reps=10)
+    rows["spectral_horizon_twin_km32"].update(
+        max_abs_err=float((got - ref).abs().max()), device_ms=dev_ms,
+        ms=time_ms(torch, call, reps=10),
+        plain_ms=time_ms(torch, lambda: sh.spectral_horizon_plain(pst.x, pst.v, u_c, u_s, **kw),
+                         reps=3),
+        library_ms=None, **bound(spectral_ops(k, h, n, km, rot), spectral_bytes(k, h, n, km, True)),
+    )
+    b = rows["spectral_horizon_twin_km32"]
+    log(f"[twin-km32] 3 control steps of the twin slice at plan_modes=32: ms per step "
+        f"{', '.join(f'{t:.4f}' for t in times)}; launches {launches}; corrected kernel at K={k}, "
+        f"H={h}, Km={km}, N={n} ({sh.launch_geometry(n, rot, km)}): max |err| "
+        f"{b['max_abs_err']:.3g} (rtol 2e-4); kernel {b['ms']:.4f} ms, device {dev_ms:.5f} ms, "
+        f"plain {b['plain_ms']:.4f} ms; bound {b['bound_ms']:.6f} ms ({b['bound_by']}) = "
+        f"{100 * b['bound_ms'] / dev_ms:.2f} % on the device")
+
+
 def coherent_state(torch, n: int, length: float, seed: int, amplitude: float = 0.5):
     """Two counter-streaming beams (v = N(0, 1) +- 3) with a mode-1 density
     modulation of the given amplitude, made on the CPU from ``seed``: the
@@ -1088,13 +1518,15 @@ def check_global_scratch(torch) -> None:
             require(torch.allclose(got, ref, rtol=2e-4, atol=1e-6),
                     f"global scratch rot={rot} twin={twin} vs plain")
             rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
-            dev_ms, _ = device_ms(torch, lambda: sh.spectral_horizon(x, v, u_c, u_s, **kw),
-                                  "spectral_horizon_kernel", reps=5)
+            call = lambda: sh.spectral_horizon(x, v, u_c, u_s, **kw)  # noqa: E731
+            dev_ms, _ = device_ms(torch, call, "spectral_horizon_kernel", reps=5)
             b = bound(spectral_ops(k, h, n, km, rot), spectral_bytes(k, h, n, km, twin=twin))
             log(f"[global] spectral_horizon{'_twin' if twin else ''} {'rot' if rot else 'trig'}, "
                 f"state in a global scratch ({geo}): K={k}, H={h}, Km={km}, N={n}: max rel "
-                f"{rel:.3g} (rtol 2e-4); device {dev_ms:.4f} ms; bound {b['bound_ms']:.6f} ms "
-                f"({b['bound_by']})")
+                f"{rel:.3g} (rtol 2e-4); kernel {time_ms(torch, call, reps=5):.4f} ms, device "
+                f"{dev_ms:.4f} ms, plain "
+                f"{time_ms(torch, lambda: sh.spectral_horizon_plain(x, v, u_c, u_s, **kw), reps=2):.4f}"
+                f" ms; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
 
 
 def run_twin_slice(torch, rows: dict) -> None:
@@ -1131,6 +1563,7 @@ def run_twin_slice(torch, rows: dict) -> None:
     plan_cost = torch.cat([o.plan_cost for o in outs])
     rows["spectral_horizon_twin"]["launches"] = launches["spectral_horizon_twin"]
     rows["deposit_cic_twin"]["launches"] = launches["deposit_cic"]
+    rows["gather_cic_100k"]["launches"] = launches["gather_cic"]
     log(f"[twin] {steps} control steps; kernel launches in the controlled run: {launches}")
     require(launches["spectral_horizon"] == launches["spectral_horizon_twin"] == steps,
             "one corrected spectral_horizon launch per solve")
@@ -1293,11 +1726,30 @@ def main() -> int:
             replaces="plasma_control_tpu/ops/pallas/spectral_horizon.py:303"),
         "deposit_cic_twin": dict(source="plasma_control_tpu_torch/csrc/cic.cu",
                                  replaces="plasma_control_tpu/ops/pallas/cic_pallas.py:91"),
+        "spectral_horizon_million": dict(
+            source="plasma_control_tpu_torch/csrc/spectral_horizon.cuh",
+            replaces="plasma_control_tpu/ops/pallas/spectral_horizon.py:303"),
+        "spectral_horizon_twin_km32": dict(
+            source="plasma_control_tpu_torch/csrc/spectral_horizon.cuh",
+            replaces="plasma_control_tpu/ops/pallas/spectral_horizon.py:303"),
+        "fused_leapfrog_step_m4096": dict(source="plasma_control_tpu_torch/csrc/fused_step.cu",
+                                          replaces="experiments/pallas_fused_step.py:165"),
+        "fused_kdk_horizon_m4096": dict(source="plasma_control_tpu_torch/csrc/fused_step.cu",
+                                        replaces="experiments/pallas_fused_step.py:301"),
+        "fused_packed_horizon_m4096": dict(source="plasma_control_tpu_torch/csrc/fused_step.cu",
+                                           replaces="experiments/pallas_fused_step.py:452"),
+        "gather_cic_100k": dict(source="plasma_control_tpu_torch/csrc/cic.cu",
+                                replaces="plasma_control_tpu/ops/pallas/cic_pallas.py:122"),
+        "gather_cic_million": dict(source="plasma_control_tpu_torch/csrc/cic.cu",
+                                   replaces="plasma_control_tpu/ops/pallas/cic_pallas.py:122"),
     }
     check_kernels(torch, rows)
     check_grid_kernels(torch, rows)
     check_twin_kernel(torch, rows)
     check_global_scratch(torch)
+    check_wide_modes(torch)
+    check_wide_mesh(torch, rows)
+    check_gather_large(torch, rows)
     run_slice(torch, rows)
     end_state = run_grid_slice(torch, rows)
     run_leapfrog_loop(torch, rows)
@@ -1305,6 +1757,8 @@ def main() -> int:
     run_config4(torch)
     run_twin_slice(torch, rows)
     run_entry_point(torch)
+    run_million(torch, rows)
+    run_twin_km32(torch, rows)
     check_against_cpu(torch)
     check_grid_against_cpu(torch, end_state)
     check_twin_against_cpu(torch)

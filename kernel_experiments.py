@@ -8,13 +8,18 @@
     python3 kernel_experiments.py sass [--root DIR] [--listing PATH]
 
 * ``compare``: kernel 2 (``deposit_cic`` and ``deposit(method="pallas")`` at
-  N=5000, M=250 and N=100000, M=256, and the deposit at every cluster size)
-  and kernels 4-6 (the grid slice's plan model, all three kinds) of this
-  checkout and of the checkout at DIR (e.g. the parent commit, unpacked with
-  ``git archive``), in turns: DIR, this, this, DIR. Each side runs in its own
-  process and builds its own kernels; per entry it prints the wrapped time
-  (CUDA-event median of 30 calls), the device time per launch of the kernel
-  and the device ops per call (profiler trace, 20 calls).
+  N=5000, M=250 and N=100000, M=256, and the deposit at every cluster size),
+  kernel 3 (``gather_cic`` on one (M,) field at N=5000, M=250, N=100000 and
+  N=1M, M=256), kernel 1 at the spectral slice's, the twin slice's
+  (corrected) and config-4's shapes, and kernels 4-6 (the grid slice's plan
+  model, all three kinds) of this checkout and of the checkout at DIR (e.g. the parent commit,
+  unpacked with ``git archive``), in turns: DIR, this, this, DIR. Each side
+  runs in its own process and builds its own kernels; per entry it prints
+  the wrapped time (CUDA-event median of 30 calls), the device time per
+  launch of the kernel and the device ops per call (profiler trace, 20
+  calls); for the gather also the sha256 of its output on positions made
+  from a seed with numpy at N=1M, so that equal hashes show the two
+  kernels' results bitwise equal.
 * ``variants``: kernel 6 (CIC) as shipped, with 128 threads per CTA, and with
   the taps of each deposit kept in shared memory for the next step's gather,
   in turns.
@@ -36,6 +41,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import hashlib
 import json
 import re
 import shutil
@@ -69,9 +75,9 @@ KEEP_TAPS = [  # CIC only: the deposit's first cell and two weights, kept per pa
      "      tw1[q] = tn.w[1];\n    }\n    __syncthreads();"),
 ]
 STAMPS = [  # thread 0 and the last warp's lane 0 of each CTA: 6 counters each
-    ("template <bool MERGED, int KIND, bool SMEM>\n__global__",
-     "__device__ long long g_stamps[4096 * 12];\n\ntemplate <bool MERGED, int KIND, bool SMEM>\n"
-     "__global__"),
+    ("template <bool MERGED, int KIND, bool SMEM, bool GMESH>\n__global__",
+     "__device__ long long g_stamps[4096 * 12];\n\n"
+     "template <bool MERGED, int KIND, bool SMEM, bool GMESH>\n__global__"),
     ("  const int n = p.n, m = p.m, h = p.h, k = blockIdx.x;\n",
      "  const int n = p.n, m = p.m, h = p.h, k = blockIdx.x;\n"
      "  const long long t_start = clock64();\n  long long acc[6] = {0, 0, 0, 0, 0, 0};\n"),
@@ -172,6 +178,7 @@ def _device(torch, fn, kernel, reps=20):
 
 
 def side(what: str) -> dict:
+    import numpy as np
     import torch
 
     from plasma_control_tpu_torch.ops import deposit as dep
@@ -221,6 +228,28 @@ def side(what: str) -> dict:
                                                   *_device(torch, call, "leapfrog_kernel")]
     if what != "compare":
         return res
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+    # kernel 1: (K, H, Km, N, corrected) of the spectral, twin and config-4 paths
+    for k1, h1, km1, n1, twin in ((384, 6, 8, 5000, False), (1024, 10, 16, 10_000, True),
+                                  (384, 10, 16, 100_000, False)):
+        x1 = torch.rand(n1, generator=gen, device=dev) * L
+        v1 = 1.5 * torch.randn(n1, generator=gen, device=dev)
+        u1 = 0.3 * torch.randn((k1, h1, km1), generator=gen, device=dev)
+        t1 = n1 ** 0.5 * torch.randn((h1, km1), generator=gen, device=dev) if twin else None
+        call = lambda: sh.spectral_horizon(x1, v1, u1, u1, length=L, dt=0.1, n0=1.0,  # noqa: E731
+                                           n_particles=n1, rot=True, twin_c=t1, twin_s=t1)
+        res[f"spectral_horizon K={k1} Km={km1} N={n1}{' corrected' if twin else ''}"] = [
+            _time_ms(torch, call, reps=10), *_device(torch, call, "spectral_horizon_kernel")]
+    for n_gat, m_gat in ((5000, 250), (100_000, 256), (1_000_000, 256)):
+        r = np.random.default_rng(n_gat)
+        x = torch.tensor(r.uniform(-L, 2 * L, (1, n_gat)).astype(np.float32), device=dev)
+        e = torch.tensor(r.standard_normal(m_gat).astype(np.float32), device=dev)
+        call = lambda: cic.gather_cic(e, x, m_gat, L)  # noqa: E731
+        res[f"gather_cic N={n_gat}"] = [_time_ms(torch, call), *_device(torch, call, "gather_kernel")]
+        for kind in KINDS:
+            out = cic.gather_cic(e, x, m_gat, L, kind).cpu().numpy()
+            res[f"gather_cic N={n_gat} {kind} sha256"] = hashlib.sha256(out.tobytes()).hexdigest()
     for n_dep, m_dep in ((5000, 250), (100_000, 256)):
         x = torch.rand((1, n_dep), generator=gen, device=dev) * L
         grid = make_grid(m_dep, L, device=dev)
@@ -250,8 +279,8 @@ def table(runs: list) -> None:
     for key in dict.fromkeys(key for _, r in runs for key in r):
         if key in ("build_s", "library"):
             continue
-        cells = [f"{r[key][0]:.4f} ({r[key][1]:.5f}, {r[key][2]:.0f} ops)" if key in r else "-"
-                 for _, r in runs]
+        cells = [("-" if key not in r else r[key][:16] if isinstance(r[key], str) else
+                  f"{r[key][0]:.4f} ({r[key][1]:.5f}, {r[key][2]:.0f} ops)") for _, r in runs]
         print(f"{key} | " + " | ".join(cells))
 
 
@@ -308,8 +337,12 @@ def main() -> int:
         if not args.parent:
             raise SystemExit("kernel_experiments: compare needs --parent DIR")
         parent = str(Path(args.parent).resolve())
-        table([(tag, run_side(root, "compare")) for tag, root in
-               (("parent", parent), ("this", here), ("this", here), ("parent", parent))])
+        runs = [(tag, run_side(root, "compare")) for tag, root in
+                (("parent", parent), ("this", here), ("this", here), ("parent", parent))]
+        table(runs)
+        for key in (k for k, v in runs[0][1].items() if isinstance(v, str) and "sha256" in k):
+            same = len({r.get(key) for _, r in runs}) == 1
+            print(f"{key}: {'bitwise the same in all four runs' if same else 'DIFFERS'}")
     else:
         with tempfile.TemporaryDirectory() as tmp:
             if args.command == "variants":

@@ -44,8 +44,30 @@
 // The gather (gather_kernel) takes positions as they are and wraps them with
 // the same arithmetic, so the wrap launches nothing and matches the plain
 // version bit for bit. It reads the field through a row stride, 0 when one
-// (M,) field serves every batch row, and each CTA stages its row's M floats in
-// shared memory once.
+// (M,) field serves every batch row. What bounds it: the bytes, 8 per
+// particle (one position in, one field value out; 8 MB at N = 1M, 2.4 us at
+// 3.35 TB/s), and at the control loop's sizes the launch: the parent kernel,
+// one particle per thread in ceil(N/256) CTAs, took 1.60 us at N = 5000,
+// 1.95 us at N = 100000 and 7.0 us at N = 1M (PERF.md §6). The design:
+//  * the kind is a template argument (each weight still shape_weight<KIND>
+//    of its offset, all 4 taps: the same arithmetic, every bit unchanged,
+//    tests/test_torch_kernels.py::test_gather_bits_unchanged), so a tap
+//    costs no branch on the kind;
+//  * each thread's first positions are loaded before the CTA stages the
+//    row's field in shared memory, so the two latencies overlap;
+//  * while ceil(N/256) CTAs per row fit the card at once, one position per
+//    thread (gather_kernel<KIND, false>): 1.46 us at N = 5000, 1.86-1.94 us
+//    at N = 100000. A float4 per thread there spread N = 5000 over 5 CTAs
+//    and took 2.4 us;
+//  * beyond, a grid of at most the card's resident CTAs (SMs times CTAs per
+//    SM, gather_capacity) walks the row in float4 rounds
+//    (gather_kernel<KIND, true>), every thread the same number, each next
+//    round's load in flight while the current one is computed: 5.5 us at
+//    N = 1M, 43 % of the bound, against 7.05 us for 3907 CTAs of one
+//    position; two rounds in flight took 5.8 us (NVIDIA H100 80GB HBM3,
+//    700 W; PERF.md §6). What holds it there is not measured. A scalar
+//    head and tail around the row's 16-byte-aligned body, and the whole
+//    row scalar where x and out differ in alignment.
 
 #include <cuda_runtime.h>
 
@@ -146,26 +168,127 @@ cudaError_t launch_deposit(const float* x, float* out, int b, int n, int m, floa
   return cudaLaunchKernelEx(&cfg, deposit_kernel<KIND>, x, out, n, m, length, inv_dx, scale);
 }
 
-__global__ void __launch_bounds__(kThreads)
-gather_kernel(const float* __restrict__ e, const float* __restrict__ x,
-              float* __restrict__ out, int n, int m, int e_stride, float length,
-              float inv_dx, int kind) {
-  extern __shared__ float e_row[];
-  const int row = blockIdx.y;
-  const float* src = e + (size_t)row * e_stride;
-  for (int j = threadIdx.x; j < m; j += kThreads) e_row[j] = src[j];
-  __syncthreads();
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n) return;
-  const float pos = pct::wrap_pos(x[(size_t)row * n + p], length) * inv_dx;
+// The field at one position x (any real value, wrapped as torch.remainder
+// wraps it) from the row's staged field: 4 taps b-1 .. b+2 in increasing j,
+// each weight shape_weight<KIND> of its offset, as the 4-tap dense sum.
+template <int KIND>
+__device__ __forceinline__ float gather_one(float xq, const float* e_row, int m, float length,
+                                            float inv_dx) {
+  const float pos = pct::wrap_pos(xq, length) * inv_dx;
   const int base = (int)floorf(pos);
   float acc = 0.0f;
 #pragma unroll
   for (int o = -1; o <= 2; ++o) {
     const int j = base + o;
-    acc += pct::shape_weight(pos - (float)j, kind) * e_row[pct::wrap_cell(j, m)];
+    acc += pct::shape_weight<KIND>(pos - (float)j) * e_row[pct::wrap_cell(j, m)];
   }
-  out[(size_t)row * n + p] = acc;
+  return acc;
+}
+
+// VECTOR false: one position per thread and round (a grid of ceil(N / 256)
+// CTAs per row is one round). VECTOR: float4 rounds over the row's
+// 16-byte-aligned body, and a scalar head and tail around it (the whole row
+// scalar where x and out differ in alignment). Either way the first
+// positions are loaded before the field is staged, and each next round's
+// before the current one is computed.
+template <int KIND, bool VECTOR>
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const float* __restrict__ e, const float* __restrict__ x,
+              float* __restrict__ out, int n, int m, int e_stride, float length,
+              float inv_dx) {
+  extern __shared__ float e_row[];
+  const int row = blockIdx.y;
+  const float* __restrict__ xr = x + (size_t)row * n;
+  float* __restrict__ outr = out + (size_t)row * n;
+  const float* __restrict__ src = e + (size_t)row * e_stride;
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  if (!VECTOR) {
+    float xs = tid < n ? xr[tid] : 0.0f;
+    for (int j = threadIdx.x; j < m; j += kThreads) e_row[j] = src[j];
+    __syncthreads();
+    for (int i = tid; i < n; i += stride) {
+      const float next = i + stride < n ? xr[i + stride] : xs;
+      outr[i] = gather_one<KIND>(xs, e_row, m, length, inv_dx);
+      xs = next;
+    }
+    return;
+  }
+  const unsigned mis = static_cast<unsigned>(reinterpret_cast<size_t>(xr) & 15);
+  const bool vec = mis == static_cast<unsigned>(reinterpret_cast<size_t>(outr) & 15);
+  const int head = vec ? min(n, static_cast<int>(((16 - mis) & 15) / 4)) : n;
+  const int n4 = (n - head) / 4;
+  const float4* __restrict__ x4 = reinterpret_cast<const float4*>(xr + head);
+  float4* __restrict__ o4 = reinterpret_cast<float4*>(outr + head);
+  float4 q = tid < n4 ? x4[tid] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int j = threadIdx.x; j < m; j += kThreads) e_row[j] = src[j];
+  __syncthreads();
+  for (int i = tid; i < n4; i += stride) {
+    const float4 next = i + stride < n4 ? x4[i + stride] : q;
+    float4 r;
+    r.x = gather_one<KIND>(q.x, e_row, m, length, inv_dx);
+    r.y = gather_one<KIND>(q.y, e_row, m, length, inv_dx);
+    r.z = gather_one<KIND>(q.z, e_row, m, length, inv_dx);
+    r.w = gather_one<KIND>(q.w, e_row, m, length, inv_dx);
+    o4[i] = r;
+    q = next;
+  }
+  for (int i = tid; i < head; i += stride)
+    outr[i] = gather_one<KIND>(xr[i], e_row, m, length, inv_dx);
+  for (int i = head + 4 * n4 + tid; i < n; i += stride)
+    outr[i] = gather_one<KIND>(xr[i], e_row, m, length, inv_dx);
+}
+
+// CTAs of gather_kernel<KIND, VECTOR> resident on the card at once with m
+// cells of shared memory each: SMs times CTAs per SM; per device and m,
+// cached.
+template <int KIND, bool VECTOR>
+cudaError_t gather_capacity(int m, int* ctas) {
+  static int dev_c = -1, m_c = -1, cap = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != dev_c || m != m_c) {
+    int sms = 0, per = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, gather_kernel<KIND, VECTOR>,
+                                                          kThreads, m * sizeof(float));
+    if (err != cudaSuccess) return err;
+    cap = sms * per > 1 ? sms * per : 1;
+    dev_c = dev;
+    m_c = m;
+  }
+  *ctas = cap;
+  return cudaSuccess;
+}
+
+// The launch: one position per thread in ceil(N / 256) CTAs per row while
+// that grid fits the card at once (the control loop's env steps), where the
+// most threads finish soonest; beyond, float4 rounds over a grid of at most
+// the resident CTAs, every thread taking the same number of rounds.
+template <int KIND>
+cudaError_t launch_gather(const float* e, const float* x, float* out, int b, int n, int m,
+                          int e_stride, float length, float inv_dx, cudaStream_t stream) {
+  int cap = 0;
+  cudaError_t err = gather_capacity<KIND, false>(m, &cap);
+  if (err != cudaSuccess) return err;
+  const long long scalar = (n + kThreads - 1) / kThreads;
+  if (scalar * b <= cap) {
+    gather_kernel<KIND, false><<<dim3(static_cast<unsigned>(scalar), b), kThreads,
+                                 m * sizeof(float), stream>>>(e, x, out, n, m, e_stride, length,
+                                                              inv_dx);
+    return cudaGetLastError();
+  }
+  err = gather_capacity<KIND, true>(m, &cap);
+  if (err != cudaSuccess) return err;
+  const long long units = (n + 3) / 4;
+  const long long per_row = cap / b > 1 ? cap / b : 1;
+  const long long rounds = (units + kThreads * per_row - 1) / (kThreads * per_row);
+  const long long ctas = (units + kThreads * rounds - 1) / (kThreads * rounds);
+  gather_kernel<KIND, true><<<dim3(static_cast<unsigned>(ctas), b), kThreads, m * sizeof(float),
+                              stream>>>(e, x, out, n, m, e_stride, length, inv_dx);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -195,13 +318,20 @@ int pct_cic_deposit(const float* x, float* out, int b, int n, int m, float lengt
 }
 
 // e: the mesh field, row r at e + r * e_stride (0: one (m,) field for every
-// row), m <= 12288; x: (b, n) positions, any real value; out: (b, n).
+// row), m <= 12288; x: (b, n) positions, any real value; out: (b, n);
+// b <= 65535, n >= 1.
 int pct_cic_gather(const float* e, const float* x, float* out, int b, int n, int m,
                    int e_stride, float length, float inv_dx, int kind, cudaStream_t stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, b);
-  gather_kernel<<<grid, kThreads, m * sizeof(float), stream>>>(e, x, out, n, m, e_stride,
-                                                               length, inv_dx, kind);
-  return static_cast<int>(cudaGetLastError());
+  if (b < 1 || b > 65535 || n < 1 || m < 1 || m > 12288)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (kind) {
+    case 0: err = launch_gather<0>(e, x, out, b, n, m, e_stride, length, inv_dx, stream); break;
+    case 1: err = launch_gather<1>(e, x, out, b, n, m, e_stride, length, inv_dx, stream); break;
+    case 2: err = launch_gather<2>(e, x, out, b, n, m, e_stride, length, inv_dx, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -35,8 +35,13 @@
 //    arrays, the state lives in a global scratch of (K, 2, N) floats that
 //    the wrapper allocates (kernel 4: in its outputs x', v'). A template flag
 //    (SMEM) compiles the case where the state and e_op_t both live in shared
-//    memory with shared-memory addressing. 128 threads per CTA ran 12 %
-//    slower (0.0485 against 0.0432 ms, kernel_experiments.py variants);
+//    memory with shared-memory addressing. Beyond M = 3631 cells the mesh
+//    arrays alone exceed a CTA's shared memory (64 M + 32 bytes); there
+//    they live in a per-CTA global scratch that the wrapper allocates
+//    (template flag GMESH), with the state and e_op_t, and the deposit's
+//    atomics and the solve go through L2. Below that the layout and the bits
+//    are unchanged. 128 threads per CTA ran 12 % slower (0.0485 against
+//    0.0432 ms, kernel_experiments.py variants);
 //  * the interpolation kind is a template argument (shape.cuh::Taps): CIC
 //    evaluates its 2 taps that can carry weight, the two TSC kinds 3, each
 //    weight bit for bit as the 4-tap evaluation computes it; cells wrap by a
@@ -95,16 +100,27 @@ constexpr int kSharedBytes = 232448;  // one CTA's dynamic shared memory on Hopp
 // that lanes (r, jj) reading rows r + 4k of columns jg + jj hit 32 banks.
 __host__ __device__ inline int eop_stride(int m) { return m + ((8 - m % 32) + 32) % 32; }
 
-// Shared memory in 4-byte words: hist[2][2M] (fixed-point counts), fa, fb, ua, ub
-// (M each), one row of M densities per warp, kWarps energy partials, then
-// e_op_t (M rows of eop_stride(M)) if it is kept there, then x and v (2N) if
-// the state is kept there. ops/kernels/fused_step.py::_layout mirrors this.
-__host__ __device__ inline size_t shared_words(const GridParams& p, bool eop_smem,
-                                               bool state_smem) {
-  return (8 + kWarps) * (size_t)p.m + kWarps +
-         (eop_smem ? (size_t)p.m * eop_stride(p.m) : 0) + (state_smem ? 2 * (size_t)p.n : 0);
+// The mesh arrays in 4-byte words: hist[2][2M] (fixed-point counts), fa, fb,
+// ua, ub (M each), one row of M densities per warp, kWarps energy partials.
+__host__ __device__ inline size_t mesh_words(const GridParams& p) {
+  return (8 + kWarps) * (size_t)p.m + kWarps;
 }
 
+// Shared memory in 4-byte words: the mesh arrays, then e_op_t (M rows of
+// eop_stride(M)) if it is kept there, then x and v (2N) if the state is kept
+// there; nothing when the mesh arrays live in a global scratch of
+// mesh_words per CTA (mesh_smem false: beyond M = 3631, where they alone
+// exceed a CTA's shared memory), and with them the state and e_op_t.
+// ops/kernels/fused_step.py::_layout mirrors this.
+__host__ __device__ inline size_t shared_words(const GridParams& p, bool mesh_smem,
+                                               bool eop_smem, bool state_smem) {
+  if (!mesh_smem) return 0;
+  return mesh_words(p) + (eop_smem ? (size_t)p.m * eop_stride(p.m) : 0) +
+         (state_smem ? 2 * (size_t)p.n : 0);
+}
+
+// The mesh arrays (and where kept, e_op_t and the state) of one CTA, in
+// shared memory or, for GMESH, in the CTA's rows of the global scratch.
 struct Smem {
   unsigned* hist;            // [2][2M]: two fixed-point histograms (shape.cuh)
   float *fa, *fb;            // fields the gathers read
@@ -115,12 +131,12 @@ struct Smem {
   float* state;              // x [N], v [N], or null
 };
 
-__device__ __forceinline__ Smem carve(float* smem, const GridParams& p, bool eop_smem,
+__device__ __forceinline__ Smem carve(float* base, const GridParams& p, bool eop_smem,
                                       bool state_smem) {
   const int m = p.m;
   Smem s;
-  s.hist = reinterpret_cast<unsigned*>(smem);
-  float* f = smem + 4 * m;
+  s.hist = reinterpret_cast<unsigned*>(base);
+  float* f = base + 4 * m;
   s.fa = f;
   s.fb = f + m;
   s.ua = f + 2 * m;
@@ -199,16 +215,20 @@ __device__ __forceinline__ void deposit_at(float x, unsigned* hist, const GridPa
 }
 
 // SMEM: the particle state and e_op_t both in shared memory (so the compiler
-// addresses them as shared); otherwise each where the launch put it.
-template <int KIND, bool SMEM>
+// addresses them as shared); otherwise each where the launch put it. GMESH:
+// the mesh arrays in the CTA's rows of `mesh`, the state and e_op_t in
+// global memory too.
+template <int KIND, bool SMEM, bool GMESH>
 __global__ void __launch_bounds__(kThreads)
 leapfrog_kernel(const float* __restrict__ x, const float* __restrict__ v,
                 const float* __restrict__ e_ext, const float* __restrict__ eop_g,
                 float* __restrict__ xo, float* __restrict__ vo, float* __restrict__ eo,
-                const GridParams p, int exact, int eop_smem, int state_smem) {
+                float* __restrict__ mesh, const GridParams p, int exact, int eop_smem,
+                int state_smem) {
   extern __shared__ __align__(16) float smem[];
   const int n = p.n, m = p.m, row = blockIdx.x;
-  const Smem s = carve(smem, p, SMEM || eop_smem, SMEM || state_smem);
+  float* base = GMESH ? mesh + (size_t)row * mesh_words(p) : smem;
+  const Smem s = carve(base, p, SMEM || eop_smem, SMEM || state_smem);
   setup(eop_g, s, p);
   const float* eop = SMEM || eop_smem ? s.eop : eop_g;
   const int ld = SMEM || eop_smem ? eop_stride(m) : m;
@@ -247,17 +267,18 @@ leapfrog_kernel(const float* __restrict__ x, const float* __restrict__ v,
   solve(s.hist + 2 * m, eop, ld, s.rho, p, [&](int j, float es) { eor[j] = es; });
 }
 
-template <bool MERGED, int KIND, bool SMEM>
+template <bool MERGED, int KIND, bool SMEM, bool GMESH>
 __global__ void __launch_bounds__(kThreads)
 horizon_kernel(const float* __restrict__ x0, const float* __restrict__ v0,
                const float* __restrict__ u, const float* __restrict__ eop_g,
-               float* __restrict__ pe, float* __restrict__ scratch, const GridParams p,
-               int eop_smem) {
+               float* __restrict__ pe, float* __restrict__ scratch, float* __restrict__ mesh,
+               const GridParams p, int eop_smem) {
   extern __shared__ __align__(16) float smem[];
   const int n = p.n, m = p.m, h = p.h, k = blockIdx.x;
   // MERGED: fa = 2 E + u_t + u_{t+1}; else fa = E + u_t (kick 2 of step t),
   // fb = E + u_{t+1} (kick 1 of step t+1)
-  const Smem s = carve(smem, p, SMEM || eop_smem, SMEM || scratch == nullptr);
+  float* base = GMESH ? mesh + (size_t)k * mesh_words(p) : smem;
+  const Smem s = carve(base, p, SMEM || eop_smem, SMEM || scratch == nullptr);
   setup(eop_g, s, p);
   const float* eop = SMEM || eop_smem ? s.eop : eop_g;
   const int ld = SMEM || eop_smem ? eop_stride(m) : m;
@@ -335,71 +356,80 @@ cudaError_t configure(Kernel kernel, int& done_for) {
   return err;
 }
 
-template <int KIND, bool SMEM>
+template <int KIND, bool SMEM, bool GMESH>
 cudaError_t launch_leapfrog(const float* x, const float* v, const float* e_ext,
-                            const float* eop_t, float* xo, float* vo, float* eo, int b,
-                            const GridParams& p, int exact, int eop_smem, int state_smem,
+                            const float* eop_t, float* xo, float* vo, float* eo, float* mesh,
+                            int b, const GridParams& p, int exact, int eop_smem, int state_smem,
                             cudaStream_t stream) {
   static int done_for = -1;
-  cudaError_t err = configure(leapfrog_kernel<KIND, SMEM>, done_for);
+  cudaError_t err = configure(leapfrog_kernel<KIND, SMEM, GMESH>, done_for);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * shared_words(p, eop_smem, state_smem);
-  leapfrog_kernel<KIND, SMEM><<<b, kThreads, smem, stream>>>(x, v, e_ext, eop_t, xo, vo, eo, p,
-                                                             exact, eop_smem, state_smem);
+  const size_t smem = sizeof(float) * shared_words(p, !GMESH, eop_smem, state_smem);
+  leapfrog_kernel<KIND, SMEM, GMESH><<<b, kThreads, smem, stream>>>(
+      x, v, e_ext, eop_t, xo, vo, eo, mesh, p, exact, eop_smem, state_smem);
   return cudaGetLastError();
 }
 
 template <int KIND>
 cudaError_t leapfrog_placement(const float* x, const float* v, const float* e_ext,
-                               const float* eop_t, float* xo, float* vo, float* eo, int b,
-                               const GridParams& p, int exact, int eop_smem, int state_smem,
-                               cudaStream_t stream) {
+                               const float* eop_t, float* xo, float* vo, float* eo, float* mesh,
+                               int b, const GridParams& p, int exact, int eop_smem,
+                               int state_smem, cudaStream_t stream) {
+  if (mesh)
+    return launch_leapfrog<KIND, false, true>(x, v, e_ext, eop_t, xo, vo, eo, mesh, b, p, exact,
+                                              eop_smem, state_smem, stream);
   return eop_smem && state_smem
-             ? launch_leapfrog<KIND, true>(x, v, e_ext, eop_t, xo, vo, eo, b, p, exact, eop_smem,
-                                           state_smem, stream)
-             : launch_leapfrog<KIND, false>(x, v, e_ext, eop_t, xo, vo, eo, b, p, exact,
-                                            eop_smem, state_smem, stream);
+             ? launch_leapfrog<KIND, true, false>(x, v, e_ext, eop_t, xo, vo, eo, mesh, b, p,
+                                                  exact, eop_smem, state_smem, stream)
+             : launch_leapfrog<KIND, false, false>(x, v, e_ext, eop_t, xo, vo, eo, mesh, b, p,
+                                                   exact, eop_smem, state_smem, stream);
 }
 
-template <bool MERGED, int KIND, bool SMEM>
+template <bool MERGED, int KIND, bool SMEM, bool GMESH>
 cudaError_t launch_horizon(const float* x0, const float* v0, const float* u, const float* eop_t,
-                           float* pe, float* scratch, int k, const GridParams& p, int eop_smem,
-                           cudaStream_t stream) {
+                           float* pe, float* scratch, float* mesh, int k, const GridParams& p,
+                           int eop_smem, cudaStream_t stream) {
   static int done_for = -1;
-  cudaError_t err = configure(horizon_kernel<MERGED, KIND, SMEM>, done_for);
+  cudaError_t err = configure(horizon_kernel<MERGED, KIND, SMEM, GMESH>, done_for);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * shared_words(p, eop_smem, scratch == nullptr);
-  horizon_kernel<MERGED, KIND, SMEM><<<k, kThreads, smem, stream>>>(x0, v0, u, eop_t, pe, scratch,
-                                                                   p, eop_smem);
+  const size_t smem = sizeof(float) * shared_words(p, !GMESH, eop_smem, scratch == nullptr);
+  horizon_kernel<MERGED, KIND, SMEM, GMESH><<<k, kThreads, smem, stream>>>(
+      x0, v0, u, eop_t, pe, scratch, mesh, p, eop_smem);
   return cudaGetLastError();
 }
 
 template <bool MERGED, int KIND>
 cudaError_t horizon_placement(const float* x0, const float* v0, const float* u,
-                              const float* eop_t, float* pe, float* scratch, int k,
+                              const float* eop_t, float* pe, float* scratch, float* mesh, int k,
                               const GridParams& p, int eop_smem, cudaStream_t stream) {
+  if (mesh)
+    return launch_horizon<MERGED, KIND, false, true>(x0, v0, u, eop_t, pe, scratch, mesh, k, p,
+                                                     eop_smem, stream);
   return eop_smem && scratch == nullptr
-             ? launch_horizon<MERGED, KIND, true>(x0, v0, u, eop_t, pe, scratch, k, p, eop_smem,
-                                                  stream)
-             : launch_horizon<MERGED, KIND, false>(x0, v0, u, eop_t, pe, scratch, k, p, eop_smem,
-                                                   stream);
+             ? launch_horizon<MERGED, KIND, true, false>(x0, v0, u, eop_t, pe, scratch, mesh, k,
+                                                         p, eop_smem, stream)
+             : launch_horizon<MERGED, KIND, false, false>(x0, v0, u, eop_t, pe, scratch, mesh,
+                                                          k, p, eop_smem, stream);
 }
 
 template <bool MERGED>
 cudaError_t horizon_kind(const float* x0, const float* v0, const float* u, const float* eop_t,
-                         float* pe, float* scratch, int k, const GridParams& p, int eop_smem,
-                         cudaStream_t stream) {
+                         float* pe, float* scratch, float* mesh, int k, const GridParams& p,
+                         int eop_smem, cudaStream_t stream) {
   switch (p.kind) {
-    case 0: return horizon_placement<MERGED, 0>(x0, v0, u, eop_t, pe, scratch, k, p, eop_smem, stream);
-    case 1: return horizon_placement<MERGED, 1>(x0, v0, u, eop_t, pe, scratch, k, p, eop_smem, stream);
-    case 2: return horizon_placement<MERGED, 2>(x0, v0, u, eop_t, pe, scratch, k, p, eop_smem, stream);
+    case 0: return horizon_placement<MERGED, 0>(x0, v0, u, eop_t, pe, scratch, mesh, k, p, eop_smem, stream);
+    case 1: return horizon_placement<MERGED, 1>(x0, v0, u, eop_t, pe, scratch, mesh, k, p, eop_smem, stream);
+    case 2: return horizon_placement<MERGED, 2>(x0, v0, u, eop_t, pe, scratch, mesh, k, p, eop_smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-bool valid(const GridParams& p, bool eop_smem, bool state_smem) {
-  return p.n >= 1 && p.m >= 1 && p.h >= 1 && p.kind >= 0 && p.kind <= 2 &&
-         sizeof(float) * shared_words(p, eop_smem, state_smem) <= (size_t)kSharedBytes;
+// mesh: the global scratch of the mesh arrays, or null (shared memory). With
+// it, the state and e_op_t live in global memory too.
+bool valid(const GridParams& p, const float* mesh, bool eop_smem, bool state_smem) {
+  if (p.n < 1 || p.m < 1 || p.h < 1 || p.kind < 0 || p.kind > 2) return false;
+  if (mesh) return !eop_smem && !state_smem;
+  return sizeof(float) * shared_words(p, true, eop_smem, state_smem) <= (size_t)kSharedBytes;
 }
 
 }  // namespace
@@ -407,33 +437,38 @@ bool valid(const GridParams& p, bool eop_smem, bool state_smem) {
 extern "C" {
 
 // x, v: (b, n); e_ext: (b, m); eop_t: (m, m) = e_op.T; outputs xo, vo (b, n)
-// and eo (b, m). state_smem = 0 keeps the half-step state in xo, vo.
+// and eo (b, m). state_smem = 0 keeps the half-step state in xo, vo. mesh:
+// null keeps the mesh arrays in shared memory, else a (b, mesh_words) float
+// buffer that holds them (eop_smem = state_smem = 0).
 int pct_fused_leapfrog_step(const float* x, const float* v, const float* e_ext,
-                            const float* eop_t, float* xo, float* vo, float* eo, int b,
-                            GridParams p, int exact, int eop_smem, int state_smem,
+                            const float* eop_t, float* xo, float* vo, float* eo, float* mesh,
+                            int b, GridParams p, int exact, int eop_smem, int state_smem,
                             cudaStream_t stream) {
-  if (b < 1 || !valid(p, eop_smem, state_smem)) return static_cast<int>(cudaErrorInvalidValue);
+  if (b < 1 || !valid(p, mesh, eop_smem, state_smem))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (p.kind) {
-    case 0: err = leapfrog_placement<0>(x, v, e_ext, eop_t, xo, vo, eo, b, p, exact, eop_smem, state_smem, stream); break;
-    case 1: err = leapfrog_placement<1>(x, v, e_ext, eop_t, xo, vo, eo, b, p, exact, eop_smem, state_smem, stream); break;
-    default: err = leapfrog_placement<2>(x, v, e_ext, eop_t, xo, vo, eo, b, p, exact, eop_smem, state_smem, stream); break;
+    case 0: err = leapfrog_placement<0>(x, v, e_ext, eop_t, xo, vo, eo, mesh, b, p, exact, eop_smem, state_smem, stream); break;
+    case 1: err = leapfrog_placement<1>(x, v, e_ext, eop_t, xo, vo, eo, mesh, b, p, exact, eop_smem, state_smem, stream); break;
+    default: err = leapfrog_placement<2>(x, v, e_ext, eop_t, xo, vo, eo, mesh, b, p, exact, eop_smem, state_smem, stream); break;
   }
   return static_cast<int>(err);
 }
 
 // x0, v0: (n,) shared initial state, positions in [-L, 2L); u: (k, h, m)
 // drive fields; eop_t: (m, m); pe: (k, h). scratch: null keeps each
-// candidate's state in shared memory, else a (k, 2, n) float buffer. merged
-// selects kernel 6 over 5.
+// candidate's state in shared memory, else a (k, 2, n) float buffer. mesh:
+// null keeps the mesh arrays in shared memory, else a (k, mesh_words) float
+// buffer that holds them (with scratch set and eop_smem = 0). merged selects
+// kernel 6 over 5.
 int pct_grid_horizon(const float* x0, const float* v0, const float* u, const float* eop_t,
-                     float* pe, float* scratch, int k, GridParams p, int merged, int eop_smem,
-                     cudaStream_t stream) {
-  if (k < 1 || !valid(p, eop_smem, scratch == nullptr))
+                     float* pe, float* scratch, float* mesh, int k, GridParams p, int merged,
+                     int eop_smem, cudaStream_t stream) {
+  if (k < 1 || !valid(p, mesh, eop_smem, scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
-      merged ? horizon_kind<true>(x0, v0, u, eop_t, pe, scratch, k, p, eop_smem, stream)
-             : horizon_kind<false>(x0, v0, u, eop_t, pe, scratch, k, p, eop_smem, stream);
+      merged ? horizon_kind<true>(x0, v0, u, eop_t, pe, scratch, mesh, k, p, eop_smem, stream)
+             : horizon_kind<false>(x0, v0, u, eop_t, pe, scratch, mesh, k, p, eop_smem, stream);
   return static_cast<int>(err);
 }
 

@@ -43,11 +43,6 @@ __device__ __forceinline__ float shape_weight(float d) {
   return 0.0f;
 }
 
-// The same weight with the kind at run time (the gather kernel's 4 taps).
-__device__ __forceinline__ float shape_weight(float d, int kind) {
-  return kind == 0 ? shape_weight<0>(d) : kind == 1 ? shape_weight<1>(d) : shape_weight<2>(d);
-}
-
 // j mod m in [0, m) for m > 0: a compare and an add for the taps of a wrapped
 // position (b in [0, m], taps in [-1, m + 2]); the division only for cells
 // further out, which a caller's unwrapped position can give.

@@ -54,6 +54,15 @@
 //    no per-mode guard: guarded updates compiled to predicated code with a
 //    register move per update, twice the instructions. Modes Km..7 or Km..15
 //    get zero coefficients, whose Clenshaw terms are exact zeros;
+//  * Km > 16 (up to 64; spectral_horizon_blocks_kernel, horizon_blocks in
+//    spectral_horizon.cuh) runs the same 16-mode body over ceil(Km / 16)
+//    blocks of modes, so a thread still keeps 32 partial sums and the state
+//    stays 12 or 16 B per particle: block b's sums come from one more pass
+//    over the stored phasors per step (the harmonic recurrence rerun from
+//    mode 1, adding modes 16b+1 .. 16b+16) and one more cluster reduction
+//    (the slots alternate from reduction to reduction); the field pass runs
+//    Clenshaw's recurrence through all blocks, their coefficients read from
+//    shared memory. The Km <= 16 kernels are untouched by it;
 //  * the inputs are read as the caller holds them: x0, v0 with a stride (the
 //    plan model's particle subsample), the drive as (K, H, Ka) strided views
 //    of the candidates, u_t + u_{t+1} and the zero modes Ka..Km formed here,
@@ -61,12 +70,12 @@
 //    one launch and no other device op.
 // A candidate's state that does not fit C=16 CTAs (N > 308048 rot, 231040
 // trig) lives in a global scratch of (3 or 4) * S floats per CTA (template
-// flag GLOBAL), read and written once per pass. Eight instantiations (drift x
-// placement x energy), rot in this file and trig in spectral_horizon_trig.cu,
-// compiled side by side; registers per instantiation and spills (none) are on
-// chip_smoke.py's [build] lines. Not done: the prologue's mode sums at the
-// shared x0 are the same for every candidate and are still summed by every
-// cluster (1 of H+1 passes).
+// flag GLOBAL), read and written once per pass. Sixteen instantiations (drift
+// x placement x energy x Km <= 16 or blocks), rot in this file and trig in
+// spectral_horizon_trig.cu, compiled side by side; registers per
+// instantiation and spills (none) are on chip_smoke.py's [build] lines. Not
+// done: the prologue's mode sums at the shared x0 are the same for every
+// candidate and are still summed by every cluster (1 of H+1 passes).
 //
 // Twin-corrected variant (template flag CORRECTED; the TPU kernel's
 // `corrected` path, spectral_horizon.py:198-205, 289-292): with the (H, Km)
@@ -95,7 +104,7 @@ extern "C" {
 // twin-corrected energy, both null for the plain energy. scratch: null keeps
 // each CTA's slice of the state, (3 + !rot) * 4 * ceil(n / cluster) bytes, in
 // shared memory; otherwise a (k * cluster, (3 + !rot) * ceil(n / cluster))
-// float buffer that holds it in global memory. km <= 16, cluster <= 16.
+// float buffer that holds it in global memory. km <= 64, cluster <= 16.
 int pct_spectral_horizon(const float* x0, const float* v0, const float* uc, const float* us,
                          const float* tc, const float* ts, float* pe, float* scratch,
                          SpectralParams p, int rot, cudaStream_t stream) {

@@ -31,8 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SpectralParams", "GridParams", "MAX_MODES", "MAX_CLUSTER", "SHARED_BYTES", "build",
-           "library", "call", "check"]
+__all__ = ["SpectralParams", "GridParams", "MAX_MODES", "BLOCK_MODES", "MAX_CLUSTER",
+           "SHARED_BYTES", "build", "library", "call", "check"]
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 SOURCE_DIR = _PACKAGE / "csrc"
@@ -43,7 +43,8 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # per-kernel registers, shared memory and spills in the build log
 )
 
-MAX_MODES = 16  # kMaxModes of csrc/spectral_horizon.cuh
+MAX_MODES = 64  # kMaxModes of csrc/spectral_horizon.cuh: the largest Km
+BLOCK_MODES = 16  # kBlockModes: Km beyond it runs in blocks of 16 modes
 MAX_CLUSTER = 16  # kMaxCluster of csrc/spectral_horizon.cuh: Hopper's largest (non-portable) cluster
 SHARED_BYTES = 232448  # shared memory one CTA may use on Hopper
 
@@ -103,10 +104,10 @@ _SIGNATURES = {
     "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _P],
     # params, rot, global, corrected, out max_clusters
     "pct_spectral_max_clusters": [SpectralParams, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
-    # x, v, e_ext, eop_t, xo, vo, eo, b, params, exact, eop_smem, state_smem, stream
-    "pct_fused_leapfrog_step": [_P, _P, _P, _P, _P, _P, _P, _I, GridParams, _I, _I, _I, _P],
-    # x0, v0, u, eop_t, pe, scratch, k, params, merged, eop_smem, stream
-    "pct_grid_horizon": [_P, _P, _P, _P, _P, _P, _I, GridParams, _I, _I, _P],
+    # x, v, e_ext, eop_t, xo, vo, eo, mesh, b, params, exact, eop_smem, state_smem, stream
+    "pct_fused_leapfrog_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, GridParams, _I, _I, _I, _P],
+    # x0, v0, u, eop_t, pe, scratch, mesh, k, params, merged, eop_smem, stream
+    "pct_grid_horizon": [_P, _P, _P, _P, _P, _P, _P, _I, GridParams, _I, _I, _P],
 }
 
 

@@ -20,10 +20,15 @@ and where the particle state lives.
 A wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors (float32); any other device raises. Each kernel launch adds one to
 the wrapper's ``launches`` count. The kernels sum their deposits in integers,
-so two launches on the same inputs return bitwise the same results.
+so two launches on the same inputs return bitwise the same results. Any mesh
+size runs: beyond 3631 cells, where the mesh arrays exceed a CTA's shared
+memory, they live in a global scratch that the wrapper allocates
+(:func:`_layout`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -117,18 +122,38 @@ def _eop_stride(m: int) -> int:
     return m + (8 - m % 32) % 32
 
 
-def _layout(n: int, m: int, what: str) -> tuple[bool, bool]:
-    """(state in shared memory, e_op_t in shared memory), as the source's
-    shared_words lays them out. The mesh arrays always live there (two
-    fixed-point histograms of 8 B a cell, four fields, a row of densities per warp,
-    the warps' energy partials); the particle state (8 B per particle) comes
-    next, then the (M, M) operator."""
-    fields = 4 * ((8 + _WARPS) * m + _WARPS)
+def _mesh_words(m: int) -> int:
+    """Floats of a CTA's mesh arrays (mesh_words in the source): two
+    fixed-point histograms of 2 words a cell, four fields, a row of densities
+    per warp, the warps' energy partials."""
+    return (8 + _WARPS) * m + _WARPS
+
+
+class Layout(NamedTuple):
+    """Where a launch keeps what (shared_words and carve in the source)."""
+
+    mesh: bool  # the mesh arrays in shared memory, else in a global scratch
+    state: bool  # the particle state (8 B per particle) in shared memory
+    eop: bool  # the (M, M) operator in shared memory
+
+
+def _layout(n: int, m: int) -> Layout:
+    """The mesh arrays in shared memory where they fit (M <= 3631), then the
+    particle state, then the operator, each where it still fits; beyond
+    3631 cells all three in global memory."""
+    fields = 4 * _mesh_words(m)
     if fields > _build.SHARED_BYTES:
-        raise ValueError(f"{what}: mesh of {m} cells beyond the kernel's shared memory")
+        return Layout(False, False, False)
     state = fields + 8 * n <= _build.SHARED_BYTES
     eop = fields + (8 * n if state else 0) + 4 * m * _eop_stride(m) <= _build.SHARED_BYTES
-    return state, eop
+    return Layout(True, state, eop)
+
+
+def _mesh_scratch(layout: Layout, rows: int, m: int, device):
+    """The global scratch of the mesh arrays, one row per CTA, or None."""
+    if layout.mesh:
+        return None
+    return torch.empty((rows, _mesh_words(m)), dtype=torch.float32, device=device)
 
 
 def _f32(what, *tensors):
@@ -157,12 +182,14 @@ def fused_leapfrog_step(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0=1.0, exac
     b = xr.shape[0]
     xo, vo = torch.empty_like(xr), torch.empty_like(vr)
     eo = torch.empty((b, n_mesh), dtype=torch.float32, device=x.device)
-    state_smem, eop_smem = _layout(n, n_mesh, "fused_leapfrog_step")
+    layout = _layout(n, n_mesh)
+    mesh = _mesh_scratch(layout, b, n_mesh, x.device)
     _build.call("pct_fused_leapfrog_step", x.get_device(),
                 xr.data_ptr(), vr.data_ptr(), er.data_ptr(), eop.data_ptr(),
-                xo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b,
-                _params(n, n_mesh, 1, kind, length, dt, n0), int(exact), int(eop_smem),
-                int(state_smem))
+                xo.data_ptr(), vo.data_ptr(), eo.data_ptr(),
+                None if mesh is None else mesh.data_ptr(), b,
+                _params(n, n_mesh, 1, kind, length, dt, n0), int(exact), int(layout.eop),
+                int(layout.state))
     fused_leapfrog_step.launches += 1
     return xo.reshape(x.shape), vo.reshape(x.shape), eo.reshape(lead + (n_mesh,))
 
@@ -176,14 +203,16 @@ def _horizon_cuda(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0, kind, mer
     if v.shape != x.shape or m != n_mesh or e_op_t.shape != (m, m):
         raise ValueError(f"{what}: x, v (N,), u_mesh_seq (K, H, M), e_op_t (M, M)")
     xc, vc, uc, eop = _f32(what, x, v, u_mesh_seq, e_op_t)
-    state_smem, eop_smem = _layout(n, m, what)
-    scratch = None if state_smem else torch.empty((k, 2 * n), dtype=torch.float32,
-                                                  device=x.device)
+    layout = _layout(n, m)
+    scratch = None if layout.state else torch.empty((k, 2 * n), dtype=torch.float32,
+                                                    device=x.device)
+    mesh = _mesh_scratch(layout, k, m, x.device)
     pe = torch.empty((k, h), dtype=torch.float32, device=x.device)
     _build.call("pct_grid_horizon", x.get_device(),
                 xc.data_ptr(), vc.data_ptr(), uc.data_ptr(), eop.data_ptr(), pe.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), k,
-                _params(n, m, h, kind, length, dt, n0), int(merged), int(eop_smem))
+                None if scratch is None else scratch.data_ptr(),
+                None if mesh is None else mesh.data_ptr(), k,
+                _params(n, m, h, kind, length, dt, n0), int(merged), int(layout.eop))
     return pe
 
 

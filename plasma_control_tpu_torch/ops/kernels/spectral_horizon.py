@@ -23,7 +23,9 @@ On the card each candidate runs on a thread-block cluster of C CTAs, each
 holding a slice of the particle state in shared memory;
 :func:`launch_geometry` chooses C from N and the drift. Where even the largest
 cluster cannot hold the state, it lives in a global scratch that the wrapper
-allocates, so every N runs.
+allocates, so every N runs. Km up to 16 runs a compile-time 8 or 16 modes;
+Km from 17 to 64 (``_build.MAX_MODES``) runs the kernel's blocked variant,
+16 modes at a time.
 """
 
 from __future__ import annotations
@@ -49,8 +51,11 @@ __all__ = [
 ]
 
 # shared memory left for a CTA's slice of the particle state beside the
-# kernel's reduction scratch (sizeof(Reduction) in the source)
-_STATE_BYTES = _build.SHARED_BYTES - 1408
+# kernel's static shared memory: the reduction scratch (sizeof(Reduction) in
+# the source), and for Km > 16 the coefficients of every block of modes
+# (sizeof(BlockCoefs))
+_REDUCTION_BYTES = 1408
+_BLOCK_COEF_BYTES = 4 * 2 * _build.MAX_MODES
 # a slice of at most 64 KiB leaves room for three CTAs per SM, the rot
 # kernel's register budget; a sweep on the H100 found the smallest such
 # cluster fastest at every main-path shape (PERF.md §6)
@@ -69,9 +74,16 @@ def use_rot(dt: float, length: float, mode: str | None = None) -> bool:
 
 
 def spectral_horizon_supported(n_particles: int, km: int) -> bool:
-    """True if the kernel takes Km modes in its fixed-size mode arrays; any
-    N >= 1 runs (:func:`state_in_shared` says where its state lives)."""
+    """True if the kernel takes Km modes, 1 <= Km <= 64 (its per-mode
+    constants are a fixed-size parameter block); any N >= 1 runs
+    (:func:`state_in_shared` says where its state lives)."""
     return n_particles >= 1 and 1 <= km <= _build.MAX_MODES
+
+
+def _state_limit(km: int) -> int:
+    """Bytes of shared memory a CTA's slice of the state may take at Km."""
+    blocks = _BLOCK_COEF_BYTES if km > _build.BLOCK_MODES else 0
+    return _build.SHARED_BYTES - _REDUCTION_BYTES - blocks
 
 
 def _state_floats(rot: bool) -> int:
@@ -91,25 +103,25 @@ class Geometry(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def launch_geometry(n_particles: int, rot: bool) -> Geometry:
+def launch_geometry(n_particles: int, rot: bool, km: int = 1) -> Geometry:
     """The smallest power-of-two cluster whose CTAs each hold at most 64 KiB
     of state, at most MAX_CLUSTER CTAs; a cluster of MAX_CLUSTER whose slices
-    exceed one CTA's shared memory keeps them in global memory. More CTAs
-    per candidate add a cluster barrier's wait per step for each CTA's
-    smaller share of the particles."""
+    exceed one CTA's shared memory (less 512 B more for Km > 16) keeps them
+    in global memory. More CTAs per candidate add a cluster barrier's wait
+    per step for each CTA's smaller share of the particles."""
     per = 4 * _state_floats(rot)
     c = 1
     while c < _build.MAX_CLUSTER and per * -(-n_particles // c) > _SLICE_BYTES:
         c *= 2
     s = -(-n_particles // c)
-    return Geometry(c, s, per * s if per * s <= _STATE_BYTES else 0)
+    return Geometry(c, s, per * s if per * s <= _state_limit(km) else 0)
 
 
-def state_in_shared(n_particles: int, rot: bool) -> bool:
+def state_in_shared(n_particles: int, rot: bool, km: int = 1) -> bool:
     """True if the candidate's particle state fits the shared memory of its
-    cluster (N <= 308048 for rot, 231040 for trig); otherwise it lives in a
-    global scratch."""
-    return launch_geometry(n_particles, rot).shared_bytes > 0
+    cluster (N <= 308048 for rot, 231040 for trig; 307360 and 230528 for
+    Km > 16); otherwise it lives in a global scratch."""
+    return launch_geometry(n_particles, rot, km).shared_bytes > 0
 
 
 def _constants(km: int, length: float, n0: float, n_particles: int):
@@ -253,7 +265,7 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
         u_c, u_s = u_c.contiguous(), u_s.contiguous()
     if corrected:
         twin_c, twin_s = twin_c.contiguous(), twin_s.contiguous()
-    geo = launch_geometry(n_particles, rot) if geometry is None else geometry
+    geo = launch_geometry(n_particles, rot, km) if geometry is None else geometry
     in_global = geo.shared_bytes == 0
     params = _params(k_cand, horizon, km, n_particles, ka, u_c.stride(0), u_c.stride(1),
                      x0.stride(0), geo.cluster, float(length), float(dt), float(n0), bool(rot),

@@ -237,6 +237,43 @@ def test_gather_bits_unchanged(dev, kind):
     assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == GATHER_SHA256[kind]
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", [1_000_000, 100_000])
+def test_gather_at_large_n_is_the_per_particle_arithmetic(dev, gen, n, kind):
+    """The env step's gather at N=1M and N=100000 (M=256, one shared field,
+    positions in [-L, 2L)): against the plain version to atol 1e-5, and
+    bitwise equal to the same positions read one particle per thread (a copy
+    at a 4-byte offset, whose rows the kernel reads scalar, as the
+    one-thread-per-particle kernel did): the 16-byte loads and the
+    grid-stride walk change no bit."""
+    m = 256
+    x = torch.rand((1, n), generator=gen, device=dev) * (3 * L) - L
+    e = torch.randn(m, generator=gen, device=dev)
+    got = cic.gather_cic(e, x, m, L, kind)
+    torch.testing.assert_close(got, cic.gather_cic_plain(e, x, m, L, kind), rtol=0.0, atol=1e-5)
+    shifted = torch.empty(n + 1, device=dev)[1:]
+    shifted.copy_(x[0])
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(cic.gather_cic(e, shifted, m, L, kind), got[0])
+
+
+@pytest.mark.parametrize("shape", [(3, 1001), (2, 4099), (5, 3), (1, 1), (2, 300_001),
+                                   (1, 1_000_003)])
+def test_gather_ragged_rows(dev, gen, shape):
+    """Rows whose length is no multiple of 4, short (one position per
+    thread) and long (float4 rounds: each row's scalar head and tail around
+    its 16-byte-aligned body): against the plain version to atol 1e-5,
+    bitwise equal to the scalar reading of each row."""
+    x = torch.rand(shape, generator=gen, device=dev) * (3 * L) - L
+    e = torch.randn((shape[0], M), generator=gen, device=dev)
+    got = cic.gather_cic(e, x, M, L, "tsc")
+    torch.testing.assert_close(got, cic.gather_cic_plain(e, x, M, L, "tsc"), rtol=0.0, atol=1e-5)
+    for r in range(shape[0]):
+        shifted = torch.empty(shape[1] + 1, device=dev)[1:]
+        shifted.copy_(x[r])
+        assert torch.equal(cic.gather_cic(e[r], shifted, M, L, "tsc"), got[r])
+
+
 @pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
 @pytest.mark.parametrize("n,k,h,km", [(5000, 384, 6, 8), (384, 7, 4, 5), (300, 16, 3, 16),
                                       (14448, 8, 2, 4), (20_000, 64, 10, 16)])
@@ -333,6 +370,71 @@ def test_spectral_horizon_global_scratch(dev, gen, n, cluster, rot, corrected):
                                rtol=2e-4, atol=1e-6)
 
 
+# Km > 16: the million-particle controller's solve (N=1M, a chunk of K=16,
+# Km=32 over 16 drive modes, global scratch), the shared-memory check shape,
+# the twin plan model at Km=32, and odd shapes up to the 64-mode limit
+WIDE_SHAPES = [(1_000_000, 16, 10, 32, 16), (20_000, 64, 10, 32, 32), (10_000, 128, 10, 32, 16),
+               (3001, 5, 3, 20, 12), (700, 3, 4, 64, 33)]
+
+
+@pytest.mark.parametrize("corrected", [False, True], ids=["plain", "corrected"])
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+@pytest.mark.parametrize("n,k,h,km,ka", WIDE_SHAPES)
+def test_spectral_horizon_beyond_16_modes_matches_plain(dev, gen, n, k, h, km, ka, rot,
+                                                         corrected):
+    """The blocked kernel (ceil(Km / 16) blocks of modes) against the plain
+    version on (K, H, Ka) views padded to Km in the kernel: rtol 2e-4, as at
+    Km <= 16; one launch."""
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
+    cand = 0.3 * torch.randn((k, h, 2 * ka), generator=gen, device=dev)
+    tc, ts = ((n ** 0.5 * torch.randn((h, km), generator=gen, device=dev) for _ in range(2))
+              if corrected else (None, None))
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=rot, twin_c=tc, twin_s=ts,
+              n_modes=km)
+    before = sh.spectral_horizon.launches
+    got = sh.spectral_horizon(x0, v0, cand[..., :ka], cand[..., ka:], **kw)
+    assert sh.spectral_horizon.launches == before + 1
+    ref = sh.spectral_horizon_plain(x0, v0, cand[..., :ka], cand[..., ka:], **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+@pytest.mark.parametrize("km", [20, 32])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_spectral_horizon_beyond_16_modes_at_every_cluster_size(dev, gen, cluster, km, rot):
+    """The blocked kernel at each cluster size, N not a multiple of C * 256,
+    with the state in shared memory and (forced) in the global scratch:
+    rtol 2e-4 against the plain version, corrected energies."""
+    n, k, h = cluster * 256 * 3 + 77, 5, 4
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
+    u_c = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    u_s = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    tc, ts = (n ** 0.5 * torch.randn((h, km), generator=gen, device=dev) for _ in range(2))
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=rot, twin_c=tc, twin_s=ts)
+    ref = sh.spectral_horizon_plain(x0, v0, u_c, u_s, **kw)
+    s = -(-n // cluster)
+    for shared in (4 * (3 if rot else 4) * s, 0):
+        got = sh._spectral_horizon_cuda(x0, v0, u_c, u_s, n_modes=None,
+                                        geometry=sh.Geometry(cluster, s, shared), **kw)
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6)
+
+
+def test_spectral_horizon_beyond_16_modes_is_deterministic(dev, gen):
+    """Each block's sums through the cluster reduction in rank order: two
+    launches at Km=32 give bitwise equal energies, in shared memory and in
+    the global scratch."""
+    for n, k in ((20_000, 64), (400_000, 8)):
+        x0 = torch.rand(n, generator=gen, device=dev) * L
+        v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
+        u = 0.3 * torch.randn((k, 10, 32), generator=gen, device=dev)
+        kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=True)
+        assert torch.equal(sh.spectral_horizon(x0, v0, u, u, **kw),
+                           sh.spectral_horizon(x0, v0, u, u, **kw))
+
+
 @pytest.mark.parametrize("n,k,km", [(10_000, 1024, 16), (100_000, 32, 16), (5000, 384, 8)])
 def test_spectral_horizon_is_deterministic(dev, gen, n, k, km):
     """Mode sums added in a fixed order (threads, warps, the cluster's ranks
@@ -411,9 +513,9 @@ def test_spectral_horizon_refuses_unsupported_shapes(dev):
     n = 64
     x = torch.zeros(n, device=dev)
     u = torch.zeros((2, 2, 4), device=dev)
-    with pytest.raises(ValueError):  # Km above the kernel's 16 modes
-        u17 = torch.zeros((2, 2, 17), device=dev)
-        sh.spectral_horizon(x, x, u17, u17, length=L, dt=0.1, n0=1.0, n_particles=n, rot=True)
+    with pytest.raises(ValueError):  # Km above the kernel's 64 modes
+        u65 = torch.zeros((2, 2, 65), device=dev)
+        sh.spectral_horizon(x, x, u65, u65, length=L, dt=0.1, n0=1.0, n_particles=n, rot=True)
     with pytest.raises(TypeError):
         sh.spectral_horizon(x[:8].double(), x[:8].double(), u.double(), u.double(), length=L,
                             dt=0.1, n0=1.0, n_particles=8, rot=True)
@@ -446,10 +548,10 @@ def test_candidate_costs_on_card_always_launch_the_kernel(dev, gen, plan_kernel)
 
 @pytest.mark.parametrize("plan_kernel", ["auto", "xla"])
 def test_candidate_costs_on_card_raise_beyond_the_kernel(dev, gen, plan_kernel):
-    """No op-by-op fallback on the card: Km above the kernel's 16 modes
+    """No op-by-op fallback on the card: Km above the kernel's 64 modes
     raises."""
     st, cand, grid, cfg, act = _cost_inputs(dev, gen, 512)
-    mpc = MPCConfig(horizon=4, n_candidates=8, plan_modes=17, plan_kernel=plan_kernel)
+    mpc = MPCConfig(horizon=4, n_candidates=8, plan_modes=65, plan_kernel=plan_kernel)
     with pytest.raises(ValueError):
         candidate_costs(st, cand, grid, cfg, mpc, act)
 
@@ -558,6 +660,36 @@ def test_grid_kernels_are_deterministic(dev, gen, kind):
         assert torch.equal(fn(x[0], v[0], u, eop, **kw), fn(x[0], v[0], u, eop, **kw)), fn
     one, two = (fs.fused_leapfrog_step(x, v, u[:, 0], eop, **kw) for _ in range(2))
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+# beyond 3631 cells the mesh arrays live in a global scratch: the grid
+# slice's plan model on 4096 cells, and an odd shape
+WIDE_MESH_SHAPES = [(1250, 4096, 8, 4), (300, 3700, 5, 3)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,m,k,h", WIDE_MESH_SHAPES)
+def test_grid_kernels_beyond_3631_cells_match_plain(dev, gen, n, m, k, h, kind):
+    """Kernels 4-6 with their mesh arrays in the global scratch, against the
+    plain versions at the bars of the tests above; two launches bitwise
+    equal (integer deposits, whatever the memory)."""
+    assert not fs._layout(n, m).mesh
+    x, v, u, eop = _grid_inputs(gen, dev, n, m, k, h, batched=True)
+    kw = dict(n_mesh=m, length=L, dt=0.1, kind=kind)
+    got = fs.fused_leapfrog_step(x, v, u[:, 0], eop, **kw)
+    ref = fs.fused_leapfrog_step_plain(x, v, u[:, 0], eop, **kw)
+    dx = torch.remainder(got[0] - ref[0] + L / 2, L) - L / 2
+    assert bool((dx.abs() <= 1e-4 + 1e-5 * ref[0].abs()).all())
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-4)
+    pe = lambda e: (e.double() ** 2).sum(-1)
+    torch.testing.assert_close(pe(got[2]), pe(ref[2]), rtol=1e-4, atol=1e-9)
+    assert all(torch.equal(a, b) for a, b in zip(got, fs.fused_leapfrog_step(x, v, u[:, 0], eop,
+                                                                             **kw)))
+    for fn, plain in ((fs.fused_kdk_horizon, fs.fused_kdk_horizon_plain),
+                      (fs.fused_packed_horizon, fs.fused_packed_horizon_plain)):
+        got = fn(x[0], v[0], u, eop, **kw)
+        assert torch.isfinite(got).all() and torch.equal(got, fn(x[0], v[0], u, eop, **kw))
+        _assert_energies_close(got, plain(x[0], v[0], u, eop, **kw), kind)
 
 
 @pytest.mark.parametrize("plan_integrator", ["kdk", "leapfrog", "env"])

@@ -61,7 +61,8 @@ def test_drift_gate_and_limits():
     assert not use_rot(0.1, 50.0, "trig")
     assert spectral_horizon_supported(5000, 8)
     assert spectral_horizon_supported(100_000, 8)  # any N: large N keeps its state in global memory
-    assert not spectral_horizon_supported(5000, 17)
+    assert spectral_horizon_supported(5000, 17)  # Km > 16 runs in blocks of 16 modes
+    assert not spectral_horizon_supported(5000, 65)
     # a cluster of 16 CTAs holds 16 slices of 227 KB less the 1408 B of
     # reduction scratch
     assert state_in_shared(231040, rot=False) and not state_in_shared(231041, rot=False)
