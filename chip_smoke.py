@@ -74,7 +74,8 @@ any failure exits non-zero:
       (``experiments/million_r5.py:51-53,118-121``, unreduced: two-stream,
       N=1M, M=256, scatter deposit, 16 actuated modes at +-2, K=384 in
       chunks of 16, H=10, Km=32), 24 launches of kernel 1's blocked variant
-      per solve; then that launch against its plain version, one chunk's
+      per solve, its state in the global scratch (one pass over it per
+      step); then that launch against its plain version, one chunk's
       costs on the card against the CPU, and a three-step uncontrolled push
       of its state on kernels 2-3;
    i. three control steps of the twin slice at ``plan_modes=32``: kernel
@@ -88,8 +89,11 @@ any failure exits non-zero:
    corrected candidate block of 128 and a three-step loop at K=64 with the
    guard off (``experiments/config4_frontier.py:92-95``), so that the
    corrected costs drive on both sides;
-6. run the spectral and the grid slice twice for 20 control steps from one
-   seed and report whether the two runs end in bitwise the same state.
+6. launch kernel 1 at the million path's chunk (its state in the global
+   scratch) and kernel 4 at the grid slice's plan model (every kind, exact
+   or not) twice each and require bitwise equal results; then run the
+   spectral, the grid and the twin slice twice for 20 control steps from
+   one seed and report whether the two runs end in bitwise the same state.
 
 The last two lines of standard output are one JSON object per kernel
 (launches in its path's run, error against the plain version, times, the
@@ -542,7 +546,7 @@ def check_grid_kernels(torch, rows: dict) -> None:
     # particle; two M x M solves per row
     leapfrog_ops = k * ((2 * 2 + 2 * 2 + 2 * DEPOSIT_OPS + GATHER_OPS + 3) * n + 2 * solve_ops(m) + m)
     rows["fused_leapfrog_step"]["device_ms"], _ = device_ms(
-        torch, lambda: fs.fused_leapfrog_step(xb, vb, u[:, 0], eop, **kw), "leapfrog_kernel")
+        torch, lambda: fs.fused_leapfrog_step(xb, vb, u[:, 0], eop, **kw), "leapfrog_rows_kernel")
     rows["fused_leapfrog_step"].update(
         max_abs_err=err,
         ms=time_ms(torch, lambda: fs.fused_leapfrog_step(xb, vb, u[:, 0], eop, **kw)),
@@ -1166,7 +1170,11 @@ def run_million(torch, rows: dict) -> None:
     rot = sh.use_rot(cfg.clamped_dt(), cfg.length, mpc.spectral_drift)
     ka, km = ctrl.max_mode, max(mpc.plan_modes, ctrl.max_mode)
     geo = sh.launch_geometry(cfg.n_particles, rot, km)
-    require(rot and geo.cluster == 16 and geo.shared_bytes == 0, f"million launch geometry {geo}")
+    # clusters of 16 CTAs, the state (c1, s1, vh) in a global scratch of one
+    # row per CTA, one fused pass over it per step
+    require(rot and geo.cluster == 16 and geo.shared_bytes == 0
+            and sh.scratch_shape(mpc.plan_chunk, geo, rot) == (mpc.plan_chunk * 16, 3 * geo.slice),
+            f"million launch geometry {geo}, scratch {sh.scratch_shape(mpc.plan_chunk, geo, rot)}")
     state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     gen = torch.Generator(device=dev).manual_seed(16)
     chunks = -(-mpc.n_candidates // mpc.plan_chunk)
@@ -1678,15 +1686,52 @@ def check_twin_against_cpu(torch) -> None:
 
 
 def check_loops_repeat(torch) -> None:
-    """Phase 6: the spectral and the grid slice, each run twice for 20
-    control steps from one seeded state and plan generator: reports whether
-    the two runs end in bitwise the same state and traces (not asserted)."""
+    """Phase 6: kernel 1 at the million path's chunk (its state in the
+    global scratch) and kernel 4 at the grid slice's plan model, each
+    launched twice on the same inputs: asserted bitwise equal. Then the
+    spectral, the grid and the twin slice, each run twice for 20 control
+    steps from one seeded state and plan generator: reports whether the two
+    runs end in bitwise the same state and traces (not asserted)."""
     from plasma_control_tpu_torch.control.mpc import mpc_rollout
     from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.ops.grid import make_grid
+    from plasma_control_tpu_torch.ops.kernels import fused_step as fs
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
 
     dev = torch.device("cuda")
-    for what, mpc_kw in (("spectral", MPC), ("grid", GRID_MPC)):
-        cfg, ctrl, mpc, grid, act = _setup(torch, dev, mpc=mpc_kw)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    n, k, h, km, ka = (MILLION_SIM["n_particles"], MILLION_MPC["plan_chunk"],
+                       MILLION_MPC["horizon"], MILLION_MPC["plan_modes"], MILLION_CTRL["max_mode"])
+    x = torch.rand(n, generator=gen, device=dev) * MILLION_SIM["length"]
+    v = 1.5 * torch.randn(n, generator=gen, device=dev)
+    cand = 0.6 * torch.randn((k, h, 2 * ka), generator=gen, device=dev)
+    kw = dict(length=MILLION_SIM["length"], dt=MILLION_SIM["dt"], n0=1.0, n_particles=n,
+              rot=True, n_modes=km)
+    one, two = (sh.spectral_horizon(x, v, cand[..., :ka], cand[..., ka:], **kw) for _ in range(2))
+    require(bool(torch.isfinite(one).all()) and torch.equal(one, two),
+            "spectral_horizon at the million chunk: two launches differ")
+    log(f"[repeat] spectral_horizon at the million path's chunk (K={k}, H={h}, Km={km}, N={n}, "
+        f"global scratch): two launches bitwise equal")
+    gn, gm, gk = GRID_PLAN["n"], GRID_PLAN["m"], GRID_PLAN["k"]
+    length = SIM["length"]
+    xb = torch.rand((gk, gn), generator=gen, device=dev) * length
+    vb = torch.randn((gk, gn), generator=gen, device=dev)
+    eb = 0.05 * torch.randn((gk, gm), generator=gen, device=dev)
+    eop = make_grid(gm, length, device=dev).e_op.T.contiguous()
+    for kind in KINDS:
+        for exact in (True, False):
+            one, two = (fs.fused_leapfrog_step(xb, vb, eb, eop, n_mesh=gm, length=length,
+                                               dt=SIM["dt"], exact=exact, kind=kind)
+                        for _ in range(2))
+            require(all(torch.equal(a, b) for a, b in zip(one, two)),
+                    f"fused_leapfrog_step {kind} exact={exact}: two launches differ")
+    log(f"[repeat] fused_leapfrog_step at B={gk}, N={gn}, M={gm}, 3 kinds x exact/kick-field: "
+        f"two launches bitwise equal")
+
+    for what, setup in (("spectral", lambda: _setup(torch, dev, mpc=MPC)),
+                        ("grid", lambda: _setup(torch, dev, mpc=GRID_MPC)),
+                        ("twin", lambda: _twin_setup(torch, dev))):
+        cfg, ctrl, mpc, grid, act = setup()
         state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
         runs = [mpc_rollout(state, grid, cfg, ctrl, mpc, act,
                             torch.Generator(device=dev).manual_seed(8), n_steps=20)

@@ -103,15 +103,50 @@ STAMPS = [  # thread 0 and the last warp's lane 0 of each CTA: 6 counters each
      "}\n"),
 ]
 PHASES = ("prologue", "pass", "barrier 1", "solve", "barrier 2", "total")
+ROW_STAMPS = [  # kernel 4's rows kernel, thread 0 of each CTA: cycles per phase over its rows
+    ("template <int KIND>\n__global__ void __launch_bounds__(kThreads)\nleapfrog_rows_kernel(",
+     "__device__ long long g_rstamps[4096 * 8];\n\ntemplate <int KIND>\n"
+     "__global__ void __launch_bounds__(kThreads)\nleapfrog_rows_kernel("),
+    ("  const int n = p.n, m = p.m;\n  const Smem s = carve(smem, p, true, false);",
+     "  const int n = p.n, m = p.m;\n  const Smem s = carve(smem, p, true, false);\n"
+     "  long long acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n  long long last = clock64();\n"
+     "  const long long t0 = last;\n  auto stamp = [&](int ph) {\n"
+     "    const long long now = clock64();\n    acc[ph] += now - last;\n    last = now;\n  };"),
+    ("  if (row < b) load_row(x, v, e_ext, row, p, xr, vr, er);\n  __syncthreads();\n",
+     "  if (row < b) load_row(x, v, e_ext, row, p, xr, vr, er);\n  __syncthreads();\n"
+     "  stamp(0);\n"),
+    ("    cp_async_wait();\n    __syncthreads();\n",
+     "    stamp(1);\n    cp_async_wait();\n    __syncthreads();\n    stamp(2);\n"),
+    ("      if (!exact) eor[j] = es;\n    });\n    __syncthreads();\n",
+     "      if (!exact) eor[j] = es;\n    });\n    stamp(3);\n    __syncthreads();\n"
+     "    stamp(4);\n"),
+    ("    for (int j = threadIdx.x; j < 2 * m; j += kThreads) hist0[j] = 0u;\n    if (exact) {",
+     "    for (int j = threadIdx.x; j < 2 * m; j += kThreads) hist0[j] = 0u;\n    stamp(5);\n"
+     "    if (exact) {"),
+    ("eor[j] = es; });\n    }\n    __syncthreads();\n  }\n}",
+     "eor[j] = es; });\n    }\n    stamp(6);\n    __syncthreads();\n  }\n"
+     "  acc[7] = clock64() - t0;\n  if (threadIdx.x == 0 && blockIdx.x < 4096)\n"
+     "    for (int i = 0; i < 8; ++i) g_rstamps[(size_t)blockIdx.x * 8 + i] = acc[i];\n}"),
+    ('extern "C" {\n',
+     'extern "C" {\n\nint pct_rstamps(long long* dst, int count) {\n'
+     "  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_rstamps, sizeof(long long) * count));\n"
+     "}\n"),
+]
+ROW_PHASES = ("prologue, loads issued", "pass 1", "barrier 1", "solve 1", "barrier 2", "pass 2",
+              "solve 2, barriers", "total")
+# source edits of spectral_horizon.cuh: particles per thread in flight in the
+# global-state passes' ring (kRing)
+STREAM = {depth: [("constexpr int kRing = 8;", f"constexpr int kRing = {depth};")]
+          for depth in (4, 16)}
 
 
-def patched_copy(edits: list, tmp: str, name: str) -> str:
+def patched_copy(edits: list, tmp: str, name: str, source: str = "fused_step.cu") -> str:
     """A copy of the package under tmp/name with edits applied to
-    csrc/fused_step.cu; returns the root to import it from."""
+    csrc/<source>; returns the root to import it from."""
     root = Path(tmp) / name
     shutil.copytree(ROOT / PACKAGE, root / PACKAGE,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    src = root / PACKAGE / "csrc" / "fused_step.cu"
+    src = root / PACKAGE / "csrc" / source
     text = src.read_text()
     for old, new in edits:
         if old not in text:
@@ -177,6 +212,21 @@ def _device(torch, fn, kernel, reps=20):
     raise SystemExit(f"kernel_experiments: the profiler saw {len(ours)} of {reps} {kernel} launches")
 
 
+def _queued(torch, fn, reps=10):
+    """Device ms per call of a kernel far longer than its launch: ``reps``
+    calls queued back to back between two CUDA events."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def side(what: str) -> dict:
     import numpy as np
     import torch
@@ -213,6 +263,18 @@ def side(what: str) -> dict:
                       for who in range(2)]
             res[name] = {who: dict(zip(PHASES, cyc)) for who, cyc in zip(("thread 0", "last warp"),
                                                                          cycles)}
+        # kernel 4's rows kernel (cic, exact) at one, two and four rows per CTA
+        lib.pct_rstamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        for grid in (k, k // 2, k // 4):
+            for _ in range(5):
+                fs._leapfrog_cuda(xb, vb, u[:, 0], eop, rows_grid=grid, n0=1.0, exact=True,
+                                  kind="cic", **kw)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_longlong * (grid * 8))()
+            _build.check(lib.pct_rstamps(ctypes.addressof(buf), grid * 8), "pct_rstamps")
+            res[f"fused_leapfrog_step, {k // grid} rows per CTA"] = {"thread 0": {
+                ph: sum(buf[c * 8 + i] for c in range(grid)) / grid
+                for i, ph in enumerate(ROW_PHASES)}}
         return res
     for kind in KINDS if what == "compare" else ("cic",):
         names = ("fused_packed_horizon", "fused_kdk_horizon") if what == "compare" else (
@@ -225,7 +287,36 @@ def side(what: str) -> dict:
             def call(kind=kind):
                 return fs.fused_leapfrog_step(xb, vb, u[:, 0], eop, kind=kind, **kw)
             res[f"fused_leapfrog_step {kind}"] = [_time_ms(torch, call),
-                                                  *_device(torch, call, "leapfrog_kernel")]
+                                                  *_device(torch, call, "leapfrog")]
+    if what == "stream":
+        # kernel 1 with its state in the global scratch: the million chunk and
+        # N=320000 rot (inputs as in compare)
+        from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+        for k1, km1, ka1, n1, rot in ((16, 32, 16, 1_000_000, True), (32, 16, 16, 320_000, True),
+                                      (32, 16, 16, 320_000, False)):
+            r = np.random.default_rng(n1 + km1)
+            x1 = torch.tensor(r.uniform(0, L, n1).astype(np.float32), device=dev)
+            v1 = torch.tensor((1.5 * r.standard_normal(n1)).astype(np.float32), device=dev)
+            c1 = torch.tensor((0.3 * r.standard_normal((k1, 10, 2 * ka1))).astype(np.float32),
+                              device=dev)
+            call = lambda: sh.spectral_horizon(  # noqa: E731
+                x1, v1, c1[..., :ka1], c1[..., ka1:], length=L, dt=0.1, n0=1.0, n_particles=n1,
+                rot=rot, n_modes=km1)
+            key = f"spectral_horizon global K={k1} Km={km1} N={n1} {'rot' if rot else 'trig'}"
+            res[f"{key} sha256"] = hashlib.sha256(call().cpu().numpy().tobytes()).hexdigest()
+            res[key] = [_time_ms(torch, call, reps=5), _queued(torch, call), 1]
+        return res
+    if what == "rows":
+        # kernel 4 (cic, exact) at CTA counts of its rows kernel, and (0) the
+        # one-CTA-per-row kernel, in turns
+        for rep in range(2):
+            for grid in (0, None, k, 264, 256, 132, 128):
+                call = lambda g=grid: fs._leapfrog_cuda(  # noqa: E731
+                    xb, vb, u[:, 0], eop, rows_grid=g, n0=1.0, exact=True, kind="cic", **kw)
+                res[f"fused_leapfrog_step grid={grid} #{rep}"] = [
+                    _time_ms(torch, call), *_device(torch, call, "leapfrog")]
+        return res
     if what != "compare":
         return res
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
@@ -241,6 +332,35 @@ def side(what: str) -> dict:
                                            n_particles=n1, rot=True, twin_c=t1, twin_s=t1)
         res[f"spectral_horizon K={k1} Km={km1} N={n1}{' corrected' if twin else ''}"] = [
             _time_ms(torch, call, reps=10), *_device(torch, call, "spectral_horizon_kernel")]
+    # kernel 1 with its state in the global scratch: the million path's chunk
+    # (K=16, H=10, Km=32 over 16 drive modes, N=1M, rot) and N=320000 at
+    # Km=16 (rot, trig, corrected), inputs from numpy, energies hashed
+    for k1, km1, ka1, n1, rot, twin in ((16, 32, 16, 1_000_000, True, False),
+                                        (32, 16, 16, 320_000, True, False),
+                                        (32, 16, 16, 320_000, False, False),
+                                        (32, 16, 16, 320_000, True, True)):
+        r = np.random.default_rng(n1 + km1)
+        x1 = torch.tensor(r.uniform(0, L, n1).astype(np.float32), device=dev)
+        v1 = torch.tensor((1.5 * r.standard_normal(n1)).astype(np.float32), device=dev)
+        c1 = torch.tensor((0.3 * r.standard_normal((k1, 10, 2 * ka1))).astype(np.float32),
+                          device=dev)
+        t1 = (torch.tensor((n1 ** 0.5 * r.standard_normal((10, km1))).astype(np.float32),
+                           device=dev) if twin else None)
+        call = lambda: sh.spectral_horizon(  # noqa: E731
+            x1, v1, c1[..., :ka1], c1[..., ka1:], length=L, dt=0.1, n0=1.0, n_particles=n1,
+            rot=rot, twin_c=t1, twin_s=t1, n_modes=km1)
+        key = (f"spectral_horizon global K={k1} Km={km1} N={n1} {'rot' if rot else 'trig'}"
+               f"{' corrected' if twin else ''}")
+        res[f"{key} sha256"] = hashlib.sha256(call().cpu().numpy().tobytes()).hexdigest()
+        dev_ms = (_queued(torch, call) if n1 == 1_000_000 else
+                  _device(torch, call, "spectral_horizon", reps=5)[0])
+        res[key] = [_time_ms(torch, call, reps=5), dev_ms, 1]
+    # kernel 4's outputs at the grid slice's plan model, every kind, exact or not
+    for kind in KINDS:
+        for exact in (True, False):
+            out = fs.fused_leapfrog_step(xb, vb, u[:, 0], eop, kind=kind, exact=exact, **kw)
+            res[f"fused_leapfrog_step {kind} exact={exact} sha256"] = hashlib.sha256(
+                b"".join(t.cpu().numpy().tobytes() for t in out)).hexdigest()
     for n_gat, m_gat in ((5000, 250), (100_000, 256), (1_000_000, 256)):
         r = np.random.default_rng(n_gat)
         x = torch.tensor(r.uniform(-L, 2 * L, (1, n_gat)).astype(np.float32), device=dev)
@@ -295,7 +415,7 @@ def sass(root: str, listing_path: str) -> None:
         re.findall(r"ATOMS[.A-Z0-9]*", listing))))
     for func in re.split(r"\n\s*Function : ", listing)[1:]:
         name = func.split("\n", 1)[0].strip()
-        if not re.search(r"deposit_kernel|(?<!spectral_)horizon_kernel|leapfrog_kernel", name):
+        if not re.search(r"deposit_kernel|(?<!spectral_)horizon_kernel|leapfrog", name):
             continue
         code = [(int(a, 16), op.strip()) for a, op in
                 re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
@@ -319,8 +439,9 @@ def main() -> int:
         print(json.dumps(side(sys.argv[3])))
         return 0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("command", choices=("compare", "variants", "stamps", "sass"))
-    ap.add_argument("--parent", help="compare: root of the checkout to hold this one against")
+    ap.add_argument("command", choices=("compare", "variants", "stamps", "sass", "rows", "stream"))
+    ap.add_argument("--parent", help="compare, stream: root of the checkout to hold this one "
+                    "against")
     ap.add_argument("--root", help="sass: root of the checkout to list (default: this one)")
     ap.add_argument("--listing", default="chiprun_out/sass.txt",
                     help="sass: where the full listing goes")
@@ -333,6 +454,21 @@ def main() -> int:
     here = str(ROOT)
     if args.command == "sass":
         sass(str(Path(args.root).resolve()) if args.root else here, args.listing)
+    elif args.command == "rows":
+        table([("this", run_side(here, "rows"))])
+    elif args.command == "stream":
+        with tempfile.TemporaryDirectory() as tmp:
+            roots = [("kRing 8", here)] + [
+                (f"kRing {depth}", patched_copy(edits, tmp, f"ring{depth}",
+                                                "spectral_horizon.cuh"))
+                for depth, edits in STREAM.items()]
+            if args.parent:
+                roots.append(("parent", str(Path(args.parent).resolve())))
+            runs = [(tag, run_side(root, "stream")) for tag, root in roots + roots[::-1]]
+            table(runs)
+            for key in (k for k, v in runs[0][1].items() if isinstance(v, str) and "sha256" in k):
+                same = len({r.get(key) for _, r in runs}) == 1
+                print(f"{key}: {'bitwise the same in every run' if same else 'DIFFERS'}")
     elif args.command == "compare":
         if not args.parent:
             raise SystemExit("kernel_experiments: compare needs --parent DIR")
@@ -352,12 +488,14 @@ def main() -> int:
                        (("shipped", here), ("128 threads", t128), ("taps kept", keep),
                         ("shipped", here), ("128 threads", t128), ("taps kept", keep))])
             else:
-                res = run_side(patched_copy(STAMPS, tmp, "stamps"), "stamps")
-                for name in ("fused_packed_horizon", "fused_kdk_horizon"):
-                    for who, cyc in res[name].items():
+                res = run_side(patched_copy(STAMPS + ROW_STAMPS, tmp, "stamps"), "stamps")
+                for name, phases in res.items():
+                    if not isinstance(phases, dict):
+                        continue
+                    for who, cyc in phases.items():
                         total = cyc["total"]
                         print(f"{name}, {who}: mean cycles per CTA " + ", ".join(
-                            f"{ph} {cyc[ph]:.0f} ({100 * cyc[ph] / total:.1f} %)" for ph in PHASES))
+                            f"{ph} {c:.0f} ({100 * c / total:.1f} %)" for ph, c in cyc.items()))
     return 0
 
 

@@ -3,7 +3,8 @@
 // half-kicks.
 //
 // Replaces the Pallas TPU kernels of experiments/pallas_fused_step.py:
-//  * leapfrog_kernel      <- _fused_impl / _kernel (public fused_leapfrog_step):
+//  * leapfrog_rows_kernel, leapfrog_kernel <- _fused_impl / _kernel (public
+//    fused_leapfrog_step):
 //    drift(dt/2), deposit, circulant Poisson solve, gather, kick(dt), drift(dt/2),
 //    and with `exact` a second deposit + solve at the post-step positions;
 //  * horizon_kernel<false> <- fused_kdk_horizon / _kdk_kernel: explicit KDK,
@@ -25,8 +26,21 @@
 // prologue and 0.3 % waiting at barriers (kernel_experiments.py stamps). A
 // particle takes 88 of the 179 instructions of the pass's loop (CIC, merged
 // kick; kernel_experiments.py sass, the path counted in the listing). Kernel
-// 6 takes 0.043 ms per launch, kernel 5 0.046, kernel 4 0.011 (NVIDIA H100
-// 80GB HBM3, 700 W; PERF.md §6). The design:
+// 6 takes 0.043 ms per launch, kernel 5 0.046 (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md §6). Kernel 4 is one step, not a horizon: at the grid
+// slice's leapfrog shape (B = 512 rows, N = 1250, M = 64) it moves 10.5 MB
+// (bound 0.0031 ms) and one CTA per row took 0.0108 ms, the latency of each
+// CTA's serial chain: e_op_t copied into shared memory with an integer
+// divide per element (16 KB a row), then x, v loaded one particle at a time
+// between the deposits, pass, solve, pass, solve. leapfrog_rows_kernel
+// instead runs rows over a persistent grid (ops/kernels/fused_step.py::
+// _row_grid: as few rows per CTA as one wave of resident CTAs allows), e_op_t
+// staged once per CTA by cp.async, 16 B per copy, the row's x, v (at most
+// 8 particles per thread) loaded at once into registers, where the
+// half-step state stays between the two passes, and the next row's loads in
+// flight during this row's solves (N <= 2048, M <= 256 with e_op_t in
+// shared memory; elsewhere leapfrog_kernel, one CTA per row). The design of
+// the others:
 //  * one CTA of 256 threads per candidate (kernel 4: per batch row); x and
 //    v (vh) live in shared memory for the whole step or horizon, 8 B per
 //    particle (10 KB at N = 1250), so a step touches no device memory but
@@ -166,13 +180,19 @@ __device__ __forceinline__ void setup(const float* eop_g, const Smem& s, const G
 // over all warps (see the note at the top). emit(j, E_j) runs once per
 // column, in lane j % 8 of its warp. Returns the thread's sum of E_j^2 over
 // the columns it emitted (0 in lanes 8..31).
-template <class Emit>
+// SPLIT: hist holds split counts (add_split below) rather than fixed_count's
+// carried words; either way each cell's count is the same integer.
+template <bool SPLIT = false, class Emit>
 __device__ __forceinline__ float solve(const unsigned* hist, const float* eop, int ld,
                                        float* rho, const GridParams& p, Emit emit) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, m = p.m;
   const float norm = p.norm * pct::kFixedStep;
-  for (int i = lane; i < m; i += 32)
-    rho[i] = static_cast<float>(pct::fixed_count(hist[i], hist[m + i])) * norm - p.n0;
+  for (int i = lane; i < m; i += 32) {
+    const long long count =
+        SPLIT ? static_cast<long long>(static_cast<int>(hist[m + i])) * 65536LL + hist[i]
+              : pct::fixed_count(hist[i], hist[m + i]);
+    rho[i] = static_cast<float>(count) * norm - p.n0;
+  }
   __syncwarp();
   const int r = lane >> 3, jj = lane & 7;
   float e2 = 0.0f;
@@ -265,6 +285,165 @@ leapfrog_kernel(const float* __restrict__ x, const float* __restrict__ v,
   if (!exact) return;
   __syncthreads();
   solve(s.hist + 2 * m, eop, ld, s.rho, p, [&](int j, float es) { eor[j] = es; });
+}
+
+// ---- kernel 4 over a persistent grid: rows per CTA, state in registers ---
+// Where a row's particles fit kRowQ per thread and e_op_t fits in shared
+// memory beside the mesh arrays, each CTA takes rows blockIdx.x, blockIdx.x
+// + gridDim.x, ... in turn: e_op_t is staged once per CTA (cp.async, 16 B
+// per copy where the rows allow it), the half-step state stays in the
+// registers of the thread that owns the particle (particles threadIdx.x +
+// 256 j, the same in both passes), and the next row's x, v and drive are
+// loaded during this row's solves and second pass.
+constexpr int kRowQ = 8;  // particles per thread held in registers
+constexpr int kRowParticles = kRowQ * kThreads;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+
+// Starts the copy of e_op_t (M x M) into rows of eop_stride(M) floats of
+// shared memory; cp_async_wait then a barrier make it visible.
+__device__ __forceinline__ void stage_eop(const float* __restrict__ eop_g, float* eop, int m) {
+  const int ld = eop_stride(m);
+  if (m % 4 == 0 && (reinterpret_cast<size_t>(eop_g) & 15) == 0) {
+    const int q = m / 4;  // 16-byte copies per row
+    for (int idx = threadIdx.x; idx < m * q; idx += kThreads) {
+      const int i = idx / q, c = 4 * (idx - i * q);
+      cp_async16(eop + (size_t)i * ld + c, eop_g + (size_t)i * m + c);
+    }
+  } else {
+    for (int i = threadIdx.x >> 5; i < m; i += kWarps)
+      for (int j = threadIdx.x & 31; j < m; j += 32)
+        cp_async4(eop + (size_t)i * ld + j, eop_g + (size_t)i * m + j);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The rows kernel's deposit. A tap's fixed-point count v = rint(w 2^28)
+// (shape.cuh) goes in two parts, v & 0xffff to hist[c] and v >> 16
+// (arithmetic) to hist[m + c], both by reductions that return nothing, so
+// no thread waits on an atomic: a cell's count is sum(lo) + 2^16 sum(hi),
+// the same integer as fixed_count's carried words hold (neither part can
+// overflow for N <= kRowParticles). The position is scaled with __fmul_rn,
+// so that the compiler cannot fuse the scaling into the taps' offsets: the
+// weights are those of leapfrog_kernel, bit for bit.
+__device__ __forceinline__ void add_split(unsigned* hist, int m, int c, float w) {
+  const int v = __float2int_rn(w * pct::kFixedOne);
+  atomicAdd(&hist[c], static_cast<unsigned>(v) & 0xffffu);
+  atomicAdd(reinterpret_cast<int*>(hist) + m + c, v >> 16);
+}
+
+template <int KIND>
+__device__ __forceinline__ pct::Taps<KIND> row_taps(float x, const GridParams& p) {
+  return pct::taps<KIND, true>(__fmul_rn(x, p.inv_dx), p.m);
+}
+
+template <int KIND>
+__device__ __forceinline__ void deposit_split(float x, unsigned* hist, const GridParams& p) {
+  const pct::Taps<KIND> t = row_taps<KIND>(x, p);
+#pragma unroll
+  for (int o = 0; o < pct::Taps<KIND>::kCount; ++o) add_split(hist, p.m, t.cell[o], t.w[o]);
+  if (KIND == 1 && t.edge_w != 0.0f) add_split(hist, p.m, t.edge_cell, t.edge_w);
+}
+
+// Row `row`'s particles of this thread (threadIdx.x + 256 j, j < kRowQ) and
+// its drive at cell threadIdx.x (M <= kThreads on this path).
+__device__ __forceinline__ void load_row(const float* __restrict__ x, const float* __restrict__ v,
+                                         const float* __restrict__ e_ext, int row,
+                                         const GridParams& p, float (&xr)[kRowQ],
+                                         float (&vr)[kRowQ], float& er) {
+  const size_t off = (size_t)row * p.n;
+#pragma unroll
+  for (int j = 0; j < kRowQ; ++j) {
+    const int q = threadIdx.x + j * kThreads;
+    if (q < p.n) {
+      xr[j] = x[off + q];
+      vr[j] = v[off + q];
+    }
+  }
+  er = threadIdx.x < p.m ? e_ext[(size_t)row * p.m + threadIdx.x] : 0.0f;
+}
+
+// Per row: pass 1 (drift, deposit into histogram 0), solve 1 (the kick-stage
+// field plus the drive into fa), pass 2 (gather, kick, drift, store x', v',
+// with `exact` deposit into histogram 1), solve 2. Histogram 0 is cleared in
+// pass 2, after solve 1 read it; histogram 1 in the next row's pass 1, after
+// solve 2 read it. Four barriers per row (three without `exact`). The same
+// particle arithmetic, the same integer counts per cell and the same solve
+// as leapfrog_kernel: the outputs are bitwise the same.
+template <int KIND>
+__global__ void __launch_bounds__(kThreads)
+leapfrog_rows_kernel(const float* __restrict__ x, const float* __restrict__ v,
+                     const float* __restrict__ e_ext, const float* __restrict__ eop_g,
+                     float* __restrict__ xo, float* __restrict__ vo, float* __restrict__ eo,
+                     const GridParams p, int b, int exact) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = p.n, m = p.m;
+  const Smem s = carve(smem, p, true, false);
+  const int ld = eop_stride(m);
+  unsigned* hist0 = s.hist;
+  unsigned* hist1 = s.hist + 2 * m;
+  stage_eop(eop_g, s.eop, m);
+  for (int j = threadIdx.x; j < 2 * m; j += kThreads) hist0[j] = 0u;
+  float xr[kRowQ], vr[kRowQ], er;
+  int row = blockIdx.x;
+  if (row < b) load_row(x, v, e_ext, row, p, xr, vr, er);
+  __syncthreads();
+
+  for (; row < b; row += gridDim.x) {
+    const size_t off = (size_t)row * n;
+    float* eor = eo + (size_t)row * m;
+    float xh[kRowQ], vc[kRowQ];
+#pragma unroll
+    for (int j = 0; j < kRowQ; ++j) {
+      const int q = threadIdx.x + j * kThreads;
+      if (q < n) {
+        vc[j] = vr[j];
+        xh[j] = pct::wrap_pos(xr[j] + p.half_dt * vr[j], p.length);
+        deposit_split<KIND>(xh[j], hist0, p);
+      }
+    }
+    if (threadIdx.x < m) s.ua[threadIdx.x] = er;
+    for (int j = threadIdx.x; j < 2 * m; j += kThreads) hist1[j] = 0u;
+    // the next row's particles and drive, in flight through this row's work
+    if (row + (int)gridDim.x < b) load_row(x, v, e_ext, row + gridDim.x, p, xr, vr, er);
+    cp_async_wait();
+    __syncthreads();
+    solve<true>(hist0, s.eop, ld, s.rho, p, [&](int j, float es) {
+      s.fa[j] = es + s.ua[j];
+      if (!exact) eor[j] = es;
+    });
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < kRowQ; ++j) {
+      const int q = threadIdx.x + j * kThreads;
+      if (q < n) {
+        const float vn = vc[j] + p.dt * (-pct::gather(row_taps<KIND>(xh[j], p), s.fa));
+        const float xn = pct::wrap_pos(xh[j] + p.half_dt * vn, p.length);
+        xo[off + q] = xn;
+        vo[off + q] = vn;
+        if (exact) deposit_split<KIND>(xn, hist1, p);
+      }
+    }
+    for (int j = threadIdx.x; j < 2 * m; j += kThreads) hist0[j] = 0u;
+    if (exact) {
+      __syncthreads();
+      solve<true>(hist1, s.eop, ld, s.rho, p, [&](int j, float es) { eor[j] = es; });
+    }
+    __syncthreads();
+  }
 }
 
 template <bool MERGED, int KIND, bool SMEM, bool GMESH>
@@ -385,6 +564,44 @@ cudaError_t leapfrog_placement(const float* x, const float* v, const float* e_ex
                                                    exact, eop_smem, state_smem, stream);
 }
 
+// The rows kernel's shared memory: the mesh arrays and e_op_t.
+inline size_t rows_smem(const GridParams& p) {
+  return sizeof(float) * shared_words(p, true, true, false);
+}
+
+// grid CTAs of leapfrog_rows_kernel over b rows; with ctas, instead of the
+// launch, how many of its CTAs fit one SM.
+template <int KIND>
+cudaError_t launch_rows(const float* x, const float* v, const float* e_ext, const float* eop_t,
+                        float* xo, float* vo, float* eo, int b, int grid, const GridParams& p,
+                        int exact, cudaStream_t stream, int* ctas) {
+  static int done_for = -1;
+  cudaError_t err = configure(leapfrog_rows_kernel<KIND>, done_for);
+  if (err != cudaSuccess) return err;
+  if (ctas)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, leapfrog_rows_kernel<KIND>,
+                                                         kThreads, rows_smem(p));
+  leapfrog_rows_kernel<KIND><<<grid, kThreads, rows_smem(p), stream>>>(x, v, e_ext, eop_t, xo, vo,
+                                                                       eo, p, b, exact);
+  return cudaGetLastError();
+}
+
+cudaError_t rows_kind(const float* x, const float* v, const float* e_ext, const float* eop_t,
+                      float* xo, float* vo, float* eo, int b, int grid, const GridParams& p,
+                      int exact, cudaStream_t stream, int* ctas) {
+  switch (p.kind) {
+    case 0: return launch_rows<0>(x, v, e_ext, eop_t, xo, vo, eo, b, grid, p, exact, stream, ctas);
+    case 1: return launch_rows<1>(x, v, e_ext, eop_t, xo, vo, eo, b, grid, p, exact, stream, ctas);
+    default: return launch_rows<2>(x, v, e_ext, eop_t, xo, vo, eo, b, grid, p, exact, stream, ctas);
+  }
+}
+
+// The rows kernel takes a row: N <= kRowParticles, M <= kThreads cells and
+// the mesh arrays and e_op_t in one CTA's shared memory.
+bool rows_fit(const GridParams& p) {
+  return p.n <= kRowParticles && p.m <= kThreads && rows_smem(p) <= (size_t)kSharedBytes;
+}
+
 template <bool MERGED, int KIND, bool SMEM, bool GMESH>
 cudaError_t launch_horizon(const float* x0, const float* v0, const float* u, const float* eop_t,
                            float* pe, float* scratch, float* mesh, int k, const GridParams& p,
@@ -437,15 +654,23 @@ bool valid(const GridParams& p, const float* mesh, bool eop_smem, bool state_sme
 extern "C" {
 
 // x, v: (b, n); e_ext: (b, m); eop_t: (m, m) = e_op.T; outputs xo, vo (b, n)
-// and eo (b, m). state_smem = 0 keeps the half-step state in xo, vo. mesh:
-// null keeps the mesh arrays in shared memory, else a (b, mesh_words) float
-// buffer that holds them (eop_smem = state_smem = 0).
+// and eo (b, m). grid > 0: leapfrog_rows_kernel on grid CTAs (mesh null,
+// eop_smem = 1, state_smem = 0; see rows_fit). Otherwise one CTA per row:
+// state_smem = 0 keeps the half-step state in xo, vo; mesh null keeps the
+// mesh arrays in shared memory, else a (b, mesh_words) float buffer holds
+// them (eop_smem = state_smem = 0).
 int pct_fused_leapfrog_step(const float* x, const float* v, const float* e_ext,
                             const float* eop_t, float* xo, float* vo, float* eo, float* mesh,
-                            int b, GridParams p, int exact, int eop_smem, int state_smem,
-                            cudaStream_t stream) {
-  if (b < 1 || !valid(p, mesh, eop_smem, state_smem))
+                            int b, int grid, GridParams p, int exact, int eop_smem,
+                            int state_smem, cudaStream_t stream) {
+  if (b < 1 || grid < 0 || !valid(p, mesh, eop_smem, state_smem))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (grid > 0) {
+    if (mesh || !eop_smem || state_smem || !rows_fit(p))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        rows_kind(x, v, e_ext, eop_t, xo, vo, eo, b, grid, p, exact, stream, nullptr));
+  }
   cudaError_t err;
   switch (p.kind) {
     case 0: err = leapfrog_placement<0>(x, v, e_ext, eop_t, xo, vo, eo, mesh, b, p, exact, eop_smem, state_smem, stream); break;
@@ -453,6 +678,16 @@ int pct_fused_leapfrog_step(const float* x, const float* v, const float* e_ext,
     default: err = leapfrog_placement<2>(x, v, e_ext, eop_t, xo, vo, eo, mesh, b, p, exact, eop_smem, state_smem, stream); break;
   }
   return static_cast<int>(err);
+}
+
+// How many CTAs of leapfrog_rows_kernel fit one SM at these parameters (0
+// where the rows kernel does not take them).
+int pct_leapfrog_rows_ctas(GridParams p, int* ctas) {
+  *ctas = 0;
+  if (!valid(p, nullptr, 1, 0) || !rows_fit(p)) return 0;
+  return static_cast<int>(
+      rows_kind(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, p, 0,
+                nullptr, ctas));
 }
 
 // x0, v0: (n,) shared initial state, positions in [-L, 2L); u: (k, h, m)

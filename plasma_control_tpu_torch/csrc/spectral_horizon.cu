@@ -69,13 +69,30 @@
 //    the step's drive and targets loaded before the particle pass. A call is
 //    one launch and no other device op.
 // A candidate's state that does not fit C=16 CTAs (N > 308048 rot, 231040
-// trig) lives in a global scratch of (3 or 4) * S floats per CTA (template
-// flag GLOBAL), read and written once per pass. Sixteen instantiations (drift
-// x placement x energy x Km <= 16 or blocks), rot in this file and trig in
-// spectral_horizon_trig.cu, compiled side by side; registers per
-// instantiation and spills (none) are on chip_smoke.py's [build] lines. Not
-// done: the prologue's mode sums at the shared x0 are the same for every
-// candidate and are still summed by every cluster (1 of H+1 passes).
+// trig; the million-particle controller's N=1M) lives in a global scratch of
+// one row per CTA (template flag GLOBAL; horizon_stream in
+// spectral_horizon.cuh), and there HBM traffic, not issue, set the time: the
+// shared-memory schedule's drift pass, second sum pass (Km > 16) and field
+// pass read or wrote it ~44 B per particle-step, one particle's loads in
+// flight per thread, 9.85 ms per launch at the million chunk (K=16, H=10,
+// Km=32; 8.5 % of the operations bound). The global path instead fuses step
+// t's kick with step t+1's drift and mode sums into ONE pass per step: 12 B
+// read and 12 B written per particle-step (none written in the last), all
+// 2*Km sums of Km <= 32 in registers from one harmonic recurrence (64 at
+// Km=32, two CTAs per SM), the state (c1, s1, vh) for rot, streamed through
+// a cp.async ring in shared memory 8 particles per thread ahead, and (x, vh)
+// for trig, loaded 4 particles per thread at a time, whose phasor the pass
+// recomputes from x. The particle-to-thread map, the accumulation order,
+// the reductions and each particle's arithmetic are the shared path's, so
+// the energies are bitwise the same as there. The prologue's mode sums at
+// the shared x0 are the same for every candidate and are still summed by
+// every cluster (1 of H+1 passes, no state traffic): sharing them across
+// the clusters of one launch needs either a second device op or a
+// handshake between clusters that need not be resident together.
+// Sixteen instantiations (drift x placement x energy x Km <= 16 or blocks),
+// rot in this file and trig in spectral_horizon_trig.cu, compiled side by
+// side; registers per instantiation and spills are on chip_smoke.py's
+// [build] lines.
 //
 // Twin-corrected variant (template flag CORRECTED; the TPU kernel's
 // `corrected` path, spectral_horizon.py:198-205, 289-292): with the (H, Km)
@@ -103,7 +120,7 @@ extern "C" {
 // at k*u_sk + t*u_sh + m; pe: (k, h). tc, ts: (h, km) targets of the
 // twin-corrected energy, both null for the plain energy. scratch: null keeps
 // each CTA's slice of the state, (3 + !rot) * 4 * ceil(n / cluster) bytes, in
-// shared memory; otherwise a (k * cluster, (3 + !rot) * ceil(n / cluster))
+// shared memory; otherwise a (k * cluster, (2 + rot) * ceil(n / cluster))
 // float buffer that holds it in global memory. km <= 64, cluster <= 16.
 int pct_spectral_horizon(const float* x0, const float* v0, const float* uc, const float* us,
                          const float* tc, const float* ts, float* pe, float* scratch,

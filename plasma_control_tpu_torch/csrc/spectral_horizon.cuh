@@ -376,7 +376,9 @@ __device__ __forceinline__ void load_particle(int i, const float* __restrict__ x
   if (!ROT) x[i] = xq;
 }
 
-template <bool ROT, bool GLOBAL, bool CORRECTED, int MODES>
+// The state in the cluster's shared memory (GLOBAL false): a drift pass with
+// the mode sums, the cluster reduction, a field pass with the kick.
+template <bool ROT, bool CORRECTED, int MODES>
 __device__ __forceinline__ void horizon(const Buffers& b, const SpectralParams& p, Reduction& r,
                                         float* smem_state) {
   const int rank = cluster_rank();
@@ -386,7 +388,7 @@ __device__ __forceinline__ void horizon(const Buffers& b, const SpectralParams& 
   const int cnt = min(slice, p.n - lo);
   const float* __restrict__ x0 = b.x0 + (size_t)lo * p.x_st;
   const float* __restrict__ v0 = b.v0 + (size_t)lo * p.x_st;
-  float* state = GLOBAL ? b.scratch + (size_t)blockIdx.x * (ROT ? 3 : 4) * slice : smem_state;
+  float* state = smem_state;
   float* c1 = state;              // cos(k1 x)
   float* s1 = state + slice;      // sin(k1 x)
   float* vh = state + 2 * slice;  // staggered velocity
@@ -453,7 +455,7 @@ __device__ __forceinline__ void block_sums(const float* c1, const float* s1, int
 // still suffices), its coefficients into coefs[blk]; then one field pass,
 // Clenshaw over all blocks. Rank 0's warp 0 adds each block's energy terms
 // per lane before the butterfly.
-template <bool ROT, bool GLOBAL, bool CORRECTED>
+template <bool ROT, bool CORRECTED>
 __device__ __forceinline__ void horizon_blocks(const Buffers& b, const SpectralParams& p,
                                                Reduction& r, BlockCoefs& coefs,
                                                float* smem_state) {
@@ -464,7 +466,7 @@ __device__ __forceinline__ void horizon_blocks(const Buffers& b, const SpectralP
   const int cnt = min(slice, p.n - lo);
   const float* __restrict__ x0 = b.x0 + (size_t)lo * p.x_st;
   const float* __restrict__ v0 = b.v0 + (size_t)lo * p.x_st;
-  float* state = GLOBAL ? b.scratch + (size_t)blockIdx.x * (ROT ? 3 : 4) * slice : smem_state;
+  float* state = smem_state;
   float* c1 = state;
   float* s1 = state + slice;
   float* vh = state + 2 * slice;
@@ -520,6 +522,381 @@ __device__ __forceinline__ void horizon_blocks(const Buffers& b, const SpectralP
   cluster_sync();
 }
 
+// ---- the state in a global scratch (GLOBAL): one pass over it per step ----
+// Step t's kick (Clenshaw at the field coefficients of step t-1, or of the
+// prologue) and step t+1's drift and mode sums touch each particle in turn,
+// with nothing between them that depends on another particle, so one pass
+// does both: it reads a particle's state once, kicks, drifts, adds its
+// harmonics and writes the state once. The state is (c1, s1, vh) for rot and
+// (x, vh) for trig, whose phasor the pass recomputes from x by the same
+// sincosf that first produced it. Step 0's pass reads x0, v0 instead (the
+// prologue's kick), and the last step's pass writes nothing: the energy is
+// taken before its kick. The particle-to-thread map (i = threadIdx.x + 256 j
+// within the CTA's slice), each thread's order of accumulation and the
+// reductions are those of horizon / horizon_blocks, and each particle's
+// arithmetic is theirs, so every sum and every energy comes out the same.
+
+// Step 0's pass reads x0, v0 (L2-resident, shared by every candidate), and
+// the trig drift's passes its state, in batches of kBatch particles per
+// thread, all loaded before any is computed.
+constexpr int kBatch = 4;
+// The rot drift's other passes keep kRing particles per thread in flight:
+// each thread copies its own particles' state from the scratch into its
+// slots of a shared-memory ring (cp.async, 4 B each, one group per particle)
+// kRing particles ahead of the one it computes, so that no register holds a
+// load in flight beside the 64 partial sums. (The trig drift's 8 B state
+// took 1.46 ms through it against 1.28-1.29 ms by batched loads at
+// N=320000, K=32, Km=16 on an H100.)
+constexpr int kRing = 8;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until the thread's oldest group but kRing - 1 has landed.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kRing - 1) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The ring: slot, array (c1, s1, vh), thread.
+using Ring = float[kRing][3][kThreads];
+
+// Adds cos(m k1 x), sin(m k1 x), m = first + 1 .. first + 32, of one particle
+// to two blocks' partial sums: va (modes first + 1 .. first + 16) and vb (the
+// next 16). One recurrence throughout, whose values are those of
+// add_block_harmonics at first and at first + 16.
+__device__ __forceinline__ void add_pair_harmonics(float c1, float s1, int first,
+                                                   float (&va)[kSums], float (&vb)[kSums]) {
+  const float twoc = c1 + c1;
+  float cp2 = 1.0f, sp2 = 0.0f, cp = c1, sp = s1;
+  for (int m = 0; m < first; ++m) {
+    const float cn = twoc * cp - cp2;
+    const float sn = twoc * sp - sp2;
+    cp2 = cp;
+    cp = cn;
+    sp2 = sp;
+    sp = sn;
+  }
+  va[0] += cp;
+  va[kBlockModes] += sp;
+#pragma unroll
+  for (int m = 1; m < 2 * kBlockModes; ++m) {
+    const float cn = twoc * cp - cp2;
+    const float sn = twoc * sp - sp2;
+    cp2 = cp;
+    cp = cn;
+    sp2 = sp;
+    sp = sn;
+    if (m < kBlockModes) {
+      va[m] += cp;
+      va[kBlockModes + m] += sp;
+    } else {
+      vb[m - kBlockModes] += cp;
+      vb[m] += sp;
+    }
+  }
+}
+
+// The rot drift of a phasor (c, s) by the small angle c_ang dt vh: the
+// arithmetic of drift<true>, on registers.
+__device__ __forceinline__ void rotate(float vh, const SpectralParams& p, float& c, float& s) {
+  const float d = p.c_ang_dt * vh;
+  const float d2 = d * d;
+  const float cd = 1.0f + d2 * (-0.5f + d2 * (float)(1.0 / 24.0));
+  const float sd = d * (1.0f + d2 * ((float)(-1.0 / 6.0) + d2 * (float)(1.0 / 120.0)));
+  const float co = c, so = s;
+  c = co * cd - so * sd;
+  s = so * cd + co * sd;
+}
+
+// Floats of a particle's state in the scratch: (c1, s1, vh) or (x, vh).
+template <bool ROT>
+__host__ __device__ constexpr int stream_floats() {
+  return ROT ? 3 : 2;
+}
+
+// One CTA's slice of x0, v0 and of the state in the scratch.
+struct Stream {
+  const float* __restrict__ x0;
+  const float* __restrict__ v0;
+  float* __restrict__ a;  // rot: c1; trig: x
+  float* __restrict__ b;  // rot: s1; trig: vh
+  float* __restrict__ c;  // rot: vh
+  int cnt;                // particles of the slice
+};
+
+// One particle of the fused pass (see above): its kick by the field of
+// coefficients pc, ps in registers (MODES <= 16) or of nb blocks of them in
+// shared memory (MODES 32), its drift, its harmonics of modes 1 .. MODES
+// added to va (and modes 17 .. 32 to vb), its state stored unless `store` is
+// false. (c, s) is its phasor, vh its velocity; xq its position (trig).
+template <bool ROT, int MODES>
+__device__ __forceinline__ void stream_particle(int i, float c, float s, float vh, float xq,
+                                                const Stream& st, const SpectralParams& p,
+                                                bool store,
+                                                const float (&pc)[MODES <= 16 ? MODES : 1],
+                                                const float (&ps)[MODES <= 16 ? MODES : 1],
+                                                const BlockCoefs* coefs, int nb,
+                                                float (&va)[MODES <= 16 ? 2 * MODES : kSums],
+                                                float (&vb)[kSums]) {
+  float f;
+  if constexpr (MODES <= kBlockModes)
+    f = clenshaw<MODES>(c, s, pc, ps);
+  else
+    f = clenshaw_blocks(c, s, *coefs, nb);
+  vh = vh + p.half_dt * (-f);
+  if (ROT) {
+    rotate(vh, p, c, s);
+  } else {
+    xq = xq + p.dt * vh;
+    xq = xq - p.length * floorf(xq * p.inv_l);
+    sincosf(p.c_ang * xq, &s, &c);
+  }
+  if constexpr (MODES <= kBlockModes)
+    add_harmonics<MODES>(c, s, va);
+  else
+    add_pair_harmonics(c, s, 0, va, vb);
+  if (store) {
+    if (ROT) {
+      st.a[i] = c;
+      st.b[i] = s;
+      st.c[i] = vh;
+    } else {
+      st.a[i] = xq;
+      st.b[i] = vh;
+    }
+  }
+}
+
+// A pass by batched loads: the phasors and velocities from x0, v0 (FIRST,
+// step 0), else from the trig drift's state (x, vh).
+template <bool ROT, bool FIRST, int MODES>
+__device__ __forceinline__ void stream_direct(const Stream& st, const SpectralParams& p,
+                                              bool store,
+                                              const float (&pc)[MODES <= 16 ? MODES : 1],
+                                              const float (&ps)[MODES <= 16 ? MODES : 1],
+                                              const BlockCoefs* coefs, int nb,
+                                              float (&va)[MODES <= 16 ? 2 * MODES : kSums],
+                                              float (&vb)[kSums]) {
+  static_assert(FIRST || !ROT, "the rot drift's state streams through the ring");
+  for (int i0 = threadIdx.x; i0 < st.cnt; i0 += kBatch * kThreads) {
+    float lx[kBatch], lv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < st.cnt) {
+        lx[u] = FIRST ? st.x0[(size_t)i * p.x_st] : st.a[i];
+        lv[u] = FIRST ? st.v0[(size_t)i * p.x_st] : st.b[i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i >= st.cnt) break;
+      float c, s;
+      sincosf(p.c_ang * lx[u], &s, &c);
+      stream_particle<ROT, MODES>(i, c, s, lv[u], lx[u], st, p, store, pc, ps, coefs, nb, va,
+                                  vb);
+    }
+  }
+}
+
+// Starts the copy of particle i's state (c1, s1, vh), if it is the CTA's,
+// into ring slot `slot`, as one group, empty or not, so that the groups
+// count particles.
+__device__ __forceinline__ void ring_fetch(Ring& ring, const Stream& st, int i, int slot) {
+  if (i < st.cnt) {
+    cp_async4(&ring[slot][0][threadIdx.x], st.a + i);
+    cp_async4(&ring[slot][1][threadIdx.x], st.b + i);
+    cp_async4(&ring[slot][2][threadIdx.x], st.c + i);
+  }
+  cp_async_commit();
+}
+
+// The rot drift's passes of steps 1 .. H-1: the state from the scratch
+// through the ring. A thread reads only the slots it filled, so no barrier
+// guards them; slot j mod kRing is refilled only after particle j has been
+// computed from it.
+template <int MODES>
+__device__ __forceinline__ void stream_ring(Ring& ring, const Stream& st, const SpectralParams& p,
+                                            bool store,
+                                            const float (&pc)[MODES <= 16 ? MODES : 1],
+                                            const float (&ps)[MODES <= 16 ? MODES : 1],
+                                            const BlockCoefs* coefs, int nb,
+                                            float (&va)[MODES <= 16 ? 2 * MODES : kSums],
+                                            float (&vb)[kSums]) {
+#pragma unroll
+  for (int j = 0; j < kRing; ++j) ring_fetch(ring, st, threadIdx.x + j * kThreads, j);
+  int slot = 0;
+  for (int i = threadIdx.x; i < st.cnt; i += kThreads) {
+    cp_async_wait_ring();
+    stream_particle<true, MODES>(i, ring[slot][0][threadIdx.x], ring[slot][1][threadIdx.x],
+                                 ring[slot][2][threadIdx.x], 0.0f, st, p, store, pc, ps, coefs,
+                                 nb, va, vb);
+    ring_fetch(ring, st, i + kRing * kThreads, slot);
+    slot = slot + 1 == kRing ? 0 : slot + 1;
+  }
+  cp_async_wait_all();
+}
+
+// Blocks first / 16 and first / 16 + 1 (first >= 32) of the thread's
+// particles' harmonics into va, vb (zeroed first), the phasors recomputed
+// from x0 (PROLOGUE) or taken from the state this step's pass wrote: Km > 32,
+// one more pass per further pair of blocks.
+template <bool ROT, bool PROLOGUE>
+__device__ __forceinline__ void stream_pair_sums(const Stream& st, const SpectralParams& p,
+                                                 int first, float (&va)[kSums],
+                                                 float (&vb)[kSums]) {
+#pragma unroll
+  for (int j = 0; j < kSums; ++j) va[j] = vb[j] = 0.0f;
+  for (int i = threadIdx.x; i < st.cnt; i += kThreads) {
+    float c, s;
+    if (PROLOGUE || !ROT) {
+      sincosf(p.c_ang * (PROLOGUE ? st.x0[(size_t)i * p.x_st] : st.a[i]), &s, &c);
+    } else {
+      c = st.a[i];
+      s = st.b[i];
+    }
+    add_pair_harmonics(c, s, first, va, vb);
+  }
+}
+
+// A block's drive term (and for the corrected energy its target) at step t
+// or in the prologue, loaded before the pass whose sums it joins.
+struct BlockIn {
+  float du, target;
+};
+
+template <bool CORRECTED>
+__device__ __forceinline__ BlockIn block_in(int blk, int t, bool prologue, const Buffers& b,
+                                            const SpectralParams& p, int cand) {
+  const Own o = own_coef(blk);
+  BlockIn in{drive(o, t, !prologue, b, p, cand), 0.0f};
+  if (CORRECTED && !prologue && threadIdx.x < kSums && o.m < p.km)  // c_m - tc, s_m - ts
+    in.target = (o.sine_coef ? b.tc : b.ts)[t * p.km + o.m];
+  return in;
+}
+
+// One block's sums v through the cluster reduction into its field
+// coefficients coef_out; returns its energy term on thread j < 32.
+template <int MODES>
+__device__ __forceinline__ float block_reduce(float (&v)[2 * MODES], int blk, float scale,
+                                              const BlockIn& in, int& phase,
+                                              const SpectralParams& p, Reduction& r,
+                                              float* coef_out) {
+  const Own o = own_coef(blk);
+  const float total = reduce_modes<MODES>(v, phase++, scale, in.du, o, p, r, coef_out);
+  return energy_term(total, in.target, o, p);
+}
+
+// Every block's sums of one step (or of the prologue) reduced in block order
+// into its coefficients: the coefficients of Km <= 16 into pc, ps; blocks
+// beyond the second from one more pass per pair. Returns rank 0 warp 0's
+// energy terms summed over the blocks, per lane.
+template <bool ROT, bool CORRECTED, int MODES, bool PROLOGUE>
+__device__ __forceinline__ float stream_reduce(const Stream& st, const Buffers& b,
+                                               const SpectralParams& p, int cand, int t, int nb,
+                                               const BlockIn& in0, const BlockIn& in1,
+                                               int& phase, Reduction& r, BlockCoefs* coefs,
+                                               float (&va)[MODES <= 16 ? 2 * MODES : kSums],
+                                               float (&vb)[kSums],
+                                               float (&pc)[MODES <= 16 ? MODES : 1],
+                                               float (&ps)[MODES <= 16 ? MODES : 1]) {
+  const float scale = PROLOGUE ? 1.0f : 2.0f;
+  if constexpr (MODES <= kBlockModes) {
+    const float e = block_reduce<MODES>(va, 0, scale, in0, phase, p, r, r.coef);
+    load_coef<MODES>(r, pc, ps);
+    return e;
+  } else {
+    float e = 0.0f;
+    e += block_reduce<kBlockModes>(va, 0, scale, in0, phase, p, r, (*coefs)[0]);
+    e += block_reduce<kBlockModes>(vb, 1, scale, in1, phase, p, r, (*coefs)[1]);
+    for (int blk = 2; blk < nb; blk += 2) {
+      const BlockIn ia = block_in<CORRECTED>(blk, t, PROLOGUE, b, p, cand);
+      const BlockIn ib = block_in<CORRECTED>(blk + 1, t, PROLOGUE, b, p, cand);
+      stream_pair_sums<ROT, PROLOGUE>(st, p, kBlockModes * blk, va, vb);
+      e += block_reduce<kBlockModes>(va, blk, scale, ia, phase, p, r, (*coefs)[blk]);
+      if (blk + 1 < nb)
+        e += block_reduce<kBlockModes>(vb, blk + 1, scale, ib, phase, p, r, (*coefs)[blk + 1]);
+    }
+    return e;
+  }
+}
+
+// The whole horizon with the state in the global scratch. MODES: 8 or 16
+// (Km <= 16: one reduction per step, the coefficients in registers) or 32
+// (Km > 16: blocks 0 and 1 summed in the fused pass, 64 partial sums per
+// thread; blocks 2 and 3 of Km > 32 by one more pass per step over the state
+// the fused pass wrote; Clenshaw over all blocks from shared memory, coefs).
+template <bool ROT, bool CORRECTED, int MODES>
+__device__ __forceinline__ void horizon_stream(const Buffers& b, const SpectralParams& p,
+                                               Reduction& r, BlockCoefs* coefs, Ring& ring) {
+  constexpr bool kPairs = MODES > kBlockModes;
+  constexpr int kV = kPairs ? kSums : 2 * MODES;
+  constexpr int kRegModes = kPairs ? 1 : MODES;
+  const int rank = cluster_rank();
+  const int cand = blockIdx.x / p.cluster;
+  const int slice = (p.n + p.cluster - 1) / p.cluster;
+  const int lo = min(rank * slice, p.n);
+  float* state = b.scratch + (size_t)blockIdx.x * stream_floats<ROT>() * slice;
+  const Stream st{b.x0 + (size_t)lo * p.x_st, b.v0 + (size_t)lo * p.x_st, state,
+                  state + slice,   state + 2 * slice,        min(slice, p.n - lo)};
+  const int nb = kPairs ? (p.km + kBlockModes - 1) / kBlockModes : 1;
+  int phase = 0;
+  float va[kV], vb[kSums];
+  float pc[kRegModes], ps[kRegModes];
+
+  // ---- prologue: the mode sums at the shared x0 --------------------------
+  BlockIn in0 = block_in<CORRECTED>(0, 0, true, b, p, cand);
+  BlockIn in1 = block_in<CORRECTED>(1, 0, true, b, p, cand);
+#pragma unroll
+  for (int j = 0; j < kV; ++j) va[j] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kSums; ++j) vb[j] = 0.0f;
+  for (int i = threadIdx.x; i < st.cnt; i += kThreads) {
+    float c, s;
+    sincosf(p.c_ang * st.x0[(size_t)i * p.x_st], &s, &c);
+    if constexpr (kPairs)
+      add_pair_harmonics(c, s, 0, va, vb);
+    else
+      add_harmonics<MODES>(c, s, va);
+  }
+  stream_reduce<ROT, CORRECTED, MODES, true>(st, b, p, cand, 0, nb, in0, in1, phase, r, coefs, va,
+                                             vb, pc, ps);
+
+  // ---- H steps, one pass over the state each ------------------------------
+  for (int t = 0; t < p.h; ++t) {
+    // the step's drive and targets, loaded while the particles stream
+    in0 = block_in<CORRECTED>(0, t, false, b, p, cand);
+    in1 = block_in<CORRECTED>(1, t, false, b, p, cand);
+#pragma unroll
+    for (int j = 0; j < kV; ++j) va[j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kSums; ++j) vb[j] = 0.0f;
+    const bool store = t + 1 < p.h || nb > 2;
+    if (t == 0)
+      stream_direct<ROT, true, MODES>(st, p, store, pc, ps, coefs, nb, va, vb);
+    else if constexpr (ROT)
+      stream_ring<MODES>(ring, st, p, store, pc, ps, coefs, nb, va, vb);
+    else
+      stream_direct<false, false, MODES>(st, p, store, pc, ps, coefs, nb, va, vb);
+    const float e = stream_reduce<ROT, CORRECTED, MODES, false>(st, b, p, cand, t, nb, in0, in1,
+                                                                phase, r, coefs, va, vb, pc, ps);
+    if (rank == 0 && threadIdx.x < 32) write_energy(e, p, b.pe + (size_t)cand * p.h + t);
+  }
+  // no CTA leaves while another may still read its slot
+  cluster_sync();
+}
+
 // Register budgets: three CTAs per SM (80 registers) for the rot drift with
 // its state in shared memory; two for trig, whose sincosf needs more, and
 // for the global scratch's 64-bit state pointers.
@@ -528,10 +905,18 @@ __global__ void __launch_bounds__(kThreads, (ROT && !GLOBAL) ? 3 : 2)
 spectral_horizon_kernel(const Buffers b, const SpectralParams p) {
   __shared__ __align__(16) Reduction r;
   extern __shared__ float smem_state[];
-  if (p.km <= 8)
-    horizon<ROT, GLOBAL, CORRECTED, 8>(b, p, r, smem_state);
-  else
-    horizon<ROT, GLOBAL, CORRECTED, kBlockModes>(b, p, r, smem_state);
+  if constexpr (GLOBAL) {
+    Ring& ring = *reinterpret_cast<Ring*>(smem_state);
+    if (p.km <= 8)
+      horizon_stream<ROT, CORRECTED, 8>(b, p, r, nullptr, ring);
+    else
+      horizon_stream<ROT, CORRECTED, kBlockModes>(b, p, r, nullptr, ring);
+  } else {
+    if (p.km <= 8)
+      horizon<ROT, CORRECTED, 8>(b, p, r, smem_state);
+    else
+      horizon<ROT, CORRECTED, kBlockModes>(b, p, r, smem_state);
+  }
 }
 
 // Km > 16 (horizon_blocks): two CTAs per SM, so that a block's 32
@@ -542,7 +927,11 @@ spectral_horizon_blocks_kernel(const Buffers b, const SpectralParams p) {
   __shared__ __align__(16) Reduction r;
   __shared__ __align__(16) BlockCoefs coefs;
   extern __shared__ float smem_state[];
-  horizon_blocks<ROT, GLOBAL, CORRECTED>(b, p, r, coefs, smem_state);
+  if constexpr (GLOBAL)
+    horizon_stream<ROT, CORRECTED, 2 * kBlockModes>(b, p, r, &coefs,
+                                                    *reinterpret_cast<Ring*>(smem_state));
+  else
+    horizon_blocks<ROT, CORRECTED>(b, p, r, coefs, smem_state);
 }
 
 template <bool ROT, bool GLOBAL, bool CORRECTED, bool BLOCKS>
@@ -576,9 +965,13 @@ cudaError_t configure() {
   return err;
 }
 
+// Dynamic shared memory of a launch: the CTA's slice of the state, or with
+// the rot drift's state in the global scratch the ring its passes stream it
+// through.
 inline size_t state_bytes(const SpectralParams& p, bool rot, bool global) {
   const size_t slice = (size_t)(p.n + p.cluster - 1) / p.cluster;
-  return global ? 0 : (rot ? 3 : 4) * sizeof(float) * slice;
+  if (global) return rot ? sizeof(Ring) : 0;
+  return (rot ? 3 : 4) * sizeof(float) * slice;
 }
 
 template <bool ROT, bool GLOBAL, bool CORRECTED, bool BLOCKS>

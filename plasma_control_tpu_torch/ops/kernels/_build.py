@@ -104,8 +104,12 @@ _SIGNATURES = {
     "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _P],
     # params, rot, global, corrected, out max_clusters
     "pct_spectral_max_clusters": [SpectralParams, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
-    # x, v, e_ext, eop_t, xo, vo, eo, mesh, b, params, exact, eop_smem, state_smem, stream
-    "pct_fused_leapfrog_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, GridParams, _I, _I, _I, _P],
+    # x, v, e_ext, eop_t, xo, vo, eo, mesh, b, grid, params, exact, eop_smem, state_smem,
+    # stream
+    "pct_fused_leapfrog_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, GridParams, _I, _I, _I,
+                                _P],
+    # params, out CTAs of the rows kernel per SM
+    "pct_leapfrog_rows_ctas": [GridParams, ctypes.POINTER(ctypes.c_int)],
     # x0, v0, u, eop_t, pe, scratch, mesh, k, params, merged, eop_smem, stream
     "pct_grid_horizon": [_P, _P, _P, _P, _P, _P, _P, _I, GridParams, _I, _I, _P],
 }

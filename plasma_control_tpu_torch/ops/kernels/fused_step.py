@@ -23,11 +23,15 @@ the wrapper's ``launches`` count. The kernels sum their deposits in integers,
 so two launches on the same inputs return bitwise the same results. Any mesh
 size runs: beyond 3631 cells, where the mesh arrays exceed a CTA's shared
 memory, they live in a global scratch that the wrapper allocates
-(:func:`_layout`).
+(:func:`_layout`). Kernel 4 runs rows over a persistent grid with the
+half-step state in registers where a row allows it (``Layout.rows``,
+:func:`_row_grid`), else one CTA per row.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -129,24 +133,59 @@ def _mesh_words(m: int) -> int:
     return (8 + _WARPS) * m + _WARPS
 
 
+_THREADS = 256  # kThreads of csrc/fused_step.cu
+_ROW_Q = 8  # kRowQ: particles per thread the rows kernel holds in registers
+
+
 class Layout(NamedTuple):
     """Where a launch keeps what (shared_words and carve in the source)."""
 
     mesh: bool  # the mesh arrays in shared memory, else in a global scratch
     state: bool  # the particle state (8 B per particle) in shared memory
     eop: bool  # the (M, M) operator in shared memory
+    # kernel 4 only: rows over a persistent grid, the half-step state in
+    # registers (rows_fit in the source)
+    rows: bool = False
 
 
 def _layout(n: int, m: int) -> Layout:
     """The mesh arrays in shared memory where they fit (M <= 3631), then the
     particle state, then the operator, each where it still fits; beyond
-    3631 cells all three in global memory."""
+    3631 cells all three in global memory. Kernel 4 takes the rows kernel
+    where a row is at most 8 particles per thread, M at most 256 cells, and
+    the operator fits beside the mesh arrays."""
     fields = 4 * _mesh_words(m)
     if fields > _build.SHARED_BYTES:
         return Layout(False, False, False)
     state = fields + 8 * n <= _build.SHARED_BYTES
-    eop = fields + (8 * n if state else 0) + 4 * m * _eop_stride(m) <= _build.SHARED_BYTES
-    return Layout(True, state, eop)
+    eop_bytes = 4 * m * _eop_stride(m)
+    eop = fields + (8 * n if state else 0) + eop_bytes <= _build.SHARED_BYTES
+    rows = (n <= _ROW_Q * _THREADS and m <= _THREADS
+            and fields + eop_bytes <= _build.SHARED_BYTES)
+    return Layout(True, state, eop, rows)
+
+
+def _row_grid(b: int, slots: int) -> int:
+    """CTAs of the rows kernel for B rows when ``slots`` CTAs fit the card
+    at once: as few rows per CTA as one wave allows, ceil(B / slots), and
+    no more CTAs than that needs. CTA c takes rows c, c + grid, ..."""
+    per_cta = -(-b // max(slots, 1))
+    return -(-b // per_cta)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_slots(device: int, n: int, m: int, kind: str) -> int:
+    """CTAs of the rows kernel that fit the card at once: its CTAs per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, which the shared memory
+    of N and M decides; the physical constants are placeholders) times the
+    SMs."""
+    ctas = ctypes.c_int(0)
+    _build.check(_build.library().pct_leapfrog_rows_ctas(_params(n, m, 1, kind, 1.0, 0.1, 1.0),
+                                                         ctypes.byref(ctas)),
+                 "fused_leapfrog_step")
+    if ctas.value < 1:
+        raise RuntimeError(f"fused_leapfrog_step: no CTA of the rows kernel fits (N={n}, M={m})")
+    return ctas.value * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _mesh_scratch(layout: Layout, rows: int, m: int, device):
@@ -162,17 +201,10 @@ def _f32(what, *tensors):
     return [t.contiguous() for t in tensors]
 
 
-def fused_leapfrog_step(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0=1.0, exact=True,
-                        kind="cic"):
-    """One leapfrog planning step: (x', v', E_post).
-
-    x, v: (..., N); e_ext: (..., M), or (M,) shared by every row; e_op_t:
-    (M, M) = ``grid.e_op.T``. ``E_post`` is the self-consistent field at the
-    post-step positions when ``exact``, else the kick-stage field.
-    """
-    if not _check_device(x, "fused_leapfrog_step"):
-        return fused_leapfrog_step_plain(x, v, e_ext, e_op_t, n_mesh=n_mesh, length=length,
-                                         dt=dt, n0=n0, exact=exact, kind=kind)
+def _leapfrog_cuda(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0, exact, kind, rows_grid=None):
+    """The kernel launch. ``rows_grid`` overrides :func:`_row_grid`'s CTA
+    count of the rows kernel, and 0 takes the one-CTA-per-row kernel
+    instead (tests and experiments force them with it)."""
     n = x.shape[-1]
     if v.shape != x.shape or e_op_t.shape != (n_mesh, n_mesh) or e_ext.shape[-1] != n_mesh:
         raise ValueError("fused_leapfrog_step: x, v (..., N), e_ext (..., M), e_op_t (M, M)")
@@ -184,14 +216,32 @@ def fused_leapfrog_step(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0=1.0, exac
     eo = torch.empty((b, n_mesh), dtype=torch.float32, device=x.device)
     layout = _layout(n, n_mesh)
     mesh = _mesh_scratch(layout, b, n_mesh, x.device)
+    rows = layout.rows and rows_grid != 0
+    grid = 0
+    if rows:
+        grid = rows_grid or _row_grid(b, _row_slots(x.get_device(), n, n_mesh, kind))
     _build.call("pct_fused_leapfrog_step", x.get_device(),
                 xr.data_ptr(), vr.data_ptr(), er.data_ptr(), eop.data_ptr(),
                 xo.data_ptr(), vo.data_ptr(), eo.data_ptr(),
-                None if mesh is None else mesh.data_ptr(), b,
-                _params(n, n_mesh, 1, kind, length, dt, n0), int(exact), int(layout.eop),
-                int(layout.state))
+                None if mesh is None else mesh.data_ptr(), b, grid,
+                _params(n, n_mesh, 1, kind, length, dt, n0), int(exact),
+                int(layout.eop or rows), int(layout.state and not rows))
     fused_leapfrog_step.launches += 1
     return xo.reshape(x.shape), vo.reshape(x.shape), eo.reshape(lead + (n_mesh,))
+
+
+def fused_leapfrog_step(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0=1.0, exact=True,
+                        kind="cic"):
+    """One leapfrog planning step: (x', v', E_post).
+
+    x, v: (..., N); e_ext: (..., M), or (M,) shared by every row; e_op_t:
+    (M, M) = ``grid.e_op.T``. ``E_post`` is the self-consistent field at the
+    post-step positions when ``exact``, else the kick-stage field.
+    """
+    kw = dict(n_mesh=n_mesh, length=length, dt=dt, n0=n0, exact=exact, kind=kind)
+    if not _check_device(x, "fused_leapfrog_step"):
+        return fused_leapfrog_step_plain(x, v, e_ext, e_op_t, **kw)
+    return _leapfrog_cuda(x, v, e_ext, e_op_t, **kw)
 
 
 fused_leapfrog_step.launches = 0

@@ -23,9 +23,10 @@ On the card each candidate runs on a thread-block cluster of C CTAs, each
 holding a slice of the particle state in shared memory;
 :func:`launch_geometry` chooses C from N and the drift. Where even the largest
 cluster cannot hold the state, it lives in a global scratch that the wrapper
-allocates, so every N runs. Km up to 16 runs a compile-time 8 or 16 modes;
-Km from 17 to 64 (``_build.MAX_MODES``) runs the kernel's blocked variant,
-16 modes at a time.
+allocates (:func:`scratch_shape`), so every N runs; there the kernel makes
+one pass over the state per step. Km up to 16 runs a compile-time 8 or 16
+modes; Km from 17 to 64 (``_build.MAX_MODES``) runs the kernel's blocked
+variant, 16 modes at a time.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from . import _build
 __all__ = [
     "Geometry",
     "launch_geometry",
+    "scratch_shape",
     "spectral_horizon",
     "spectral_horizon_plain",
     "spectral_horizon_supported",
@@ -86,8 +88,13 @@ def _state_limit(km: int) -> int:
     return _build.SHARED_BYTES - _REDUCTION_BYTES - blocks
 
 
-def _state_floats(rot: bool) -> int:
-    """Floats of state per particle: c1, s1, vh, plus x for the trig drift."""
+def _state_floats(rot: bool, in_global: bool = False) -> int:
+    """Floats of state per particle: in shared memory c1, s1, vh, plus x for
+    the trig drift; in the global scratch (c1, s1, vh) for rot and (x, vh)
+    for trig, whose phasor each pass recomputes from x
+    (``stream_floats`` in the source)."""
+    if in_global:
+        return 3 if rot else 2
     return 3 if rot else 4
 
 
@@ -122,6 +129,15 @@ def state_in_shared(n_particles: int, rot: bool, km: int = 1) -> bool:
     cluster (N <= 308048 for rot, 231040 for trig; 307360 and 230528 for
     Km > 16); otherwise it lives in a global scratch."""
     return launch_geometry(n_particles, rot, km).shared_bytes > 0
+
+
+def scratch_shape(k: int, geometry: Geometry, rot: bool) -> tuple[int, int] | None:
+    """The global scratch of a launch of K candidates at ``geometry``: one
+    row per CTA of ``_state_floats(rot, True) * slice`` floats; None when
+    the state lives in shared memory."""
+    if geometry.shared_bytes:
+        return None
+    return k * geometry.cluster, _state_floats(rot, in_global=True) * geometry.slice
 
 
 def _constants(km: int, length: float, n0: float, n_particles: int):
@@ -271,10 +287,9 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
                      x0.stride(0), geo.cluster, float(length), float(dt), float(n0), bool(rot),
                      in_global, corrected)
     pe = torch.empty((k_cand, horizon), dtype=torch.float32, device=x0.device)
-    scratch = None
-    if in_global:
-        scratch = torch.empty((k_cand * geo.cluster, _state_floats(rot) * geo.slice),
-                              dtype=torch.float32, device=x0.device)
+    shape = scratch_shape(k_cand, geo, rot)
+    scratch = None if shape is None else torch.empty(shape, dtype=torch.float32,
+                                                     device=x0.device)
     _build.call(
         "pct_spectral_horizon", x0.get_device(),
         x0.data_ptr(), v0.data_ptr(), u_c.data_ptr(), u_s.data_ptr(),

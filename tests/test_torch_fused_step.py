@@ -168,6 +168,37 @@ def test_leapfrog_plain_matches_jax_step_for_tsc(kind, exact):
     np.testing.assert_allclose(pe, float(jpe), rtol=1e-4)
 
 
+@pytest.mark.parametrize("b,slots", [(512, 528), (512, 264), (512, 132), (512, 1), (7, 528),
+                                     (1, 1), (1000, 264), (513, 512)])
+def test_rows_kernel_takes_every_row_once(b, slots):
+    """Kernel 4's rows kernel: CTA c of the grid takes rows c, c + grid, ...
+    (the kernel's row loop). Every row once; no CTA without a row; as few
+    rows per CTA as ``slots`` resident CTAs allow, ceil(B / slots); the grid
+    slice's B=512 on 4 CTAs per SM of 132 SMs: one row each."""
+    grid = fs._row_grid(b, slots)
+    rows = [list(range(c, b, grid)) for c in range(grid)]
+    assert sorted(r for cta in rows for r in cta) == list(range(b))
+    assert all(rows) and grid <= slots
+    assert max(len(cta) for cta in rows) == -(-b // slots)
+    if (b, slots) == (512, 528):
+        assert grid == 512
+
+
+@pytest.mark.parametrize("n,m,rows", [(1250, 64, True), (2048, 200, True), (700, 17, True),
+                                      (1, 8, True), (100, 224, True), (2049, 64, False),
+                                      (1250, 257, False), (100, 240, False), (40_000, 64, False)])
+def test_rows_kernel_placement(n, m, rows):
+    """The rows kernel takes a row of at most 8 particles per thread (2048)
+    on at most 256 cells whose operator fits one CTA's shared memory beside
+    the mesh arrays (M=224 fits, M=240 does not); elsewhere the
+    one-CTA-per-row kernel, its placement unchanged."""
+    layout = fs._layout(n, m)
+    assert layout.rows == rows
+    assert layout[:3] == (True, 4 * fs._mesh_words(m) + 8 * n <= 232448, layout.eop)
+    if rows:
+        assert 4 * (fs._mesh_words(m) + m * fs._eop_stride(m)) <= 232448
+
+
 def test_cpu_wrappers_count_no_launches():
     """On CPU tensors the wrappers run their plain versions: no launch."""
     x, v = _state(9, 64)

@@ -422,6 +422,35 @@ def test_spectral_horizon_beyond_16_modes_at_every_cluster_size(dev, gen, cluste
         torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("corrected", [False, True], ids=["plain", "corrected"])
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+@pytest.mark.parametrize("km", [5, 8, 16, 20, 32, 40, 64])
+@pytest.mark.parametrize("cluster", [1, 4, 16])
+def test_spectral_horizon_global_scratch_is_the_shared_path(dev, gen, cluster, km, rot,
+                                                            corrected):
+    """The state in the global scratch (one fused pass per step) against the
+    state in shared memory (a drift pass and a field pass per step) at the
+    same cluster: the same particles per thread, order of accumulation,
+    reductions and per-particle arithmetic, so bitwise equal energies, at
+    Km <= 16, at Km <= 32 (two blocks in the fused pass) and beyond (one
+    more pass per pair of blocks)."""
+    n, k, h = cluster * 256 * 3 + 77, 5, 4
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    v0 = 1.5 * torch.randn(n, generator=gen, device=dev)
+    u_c = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    u_s = 0.3 * torch.randn((k, h, km), generator=gen, device=dev)
+    tc, ts = ((n ** 0.5 * torch.randn((h, km), generator=gen, device=dev) for _ in range(2))
+              if corrected else (None, None))
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=rot, twin_c=tc, twin_s=ts,
+              n_modes=None)
+    s = -(-n // cluster)
+    shared, scratch = (sh._spectral_horizon_cuda(x0, v0, u_c, u_s,
+                                                 geometry=sh.Geometry(cluster, s, nbytes), **kw)
+                       for nbytes in (4 * (3 if rot else 4) * s, 0))
+    assert torch.isfinite(scratch).all()
+    assert torch.equal(scratch, shared)
+
+
 def test_spectral_horizon_beyond_16_modes_is_deterministic(dev, gen):
     """Each block's sums through the cluster reduction in rank order: two
     launches at Km=32 give bitwise equal energies, in shared memory and in
@@ -606,6 +635,24 @@ def test_fused_leapfrog_step_matches_plain(dev, gen, n, m, k, h, kind, exact):
     torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-4)
     pe = lambda e: (e.double() ** 2).sum(-1)
     torch.testing.assert_close(pe(got[2]), pe(ref[2]), rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "kick-field"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,m,k", [(1250, 64, 512), (700, 17, 13), (2048, 200, 9), (1, 8, 3)])
+def test_fused_leapfrog_step_rows_kernel_is_the_per_row_kernel(dev, gen, n, m, k, kind, exact):
+    """The rows kernel (rows over a persistent grid, the half-step state in
+    registers) at the CTA count the wrapper picks, at one CTA, at three and
+    at one per row, against the one-CTA-per-row kernel on the same inputs:
+    x', v' and E bitwise equal (the same particle arithmetic, fixed-point
+    histograms and solve). M=17 takes the 4-byte copies of e_op_t."""
+    x, v, u, eop = _grid_inputs(gen, dev, n, m, k, 1, batched=True)
+    kw = dict(n_mesh=m, length=L, dt=0.1, n0=1.0, exact=exact, kind=kind)
+    assert fs._layout(n, m).rows
+    ref = fs._leapfrog_cuda(x, v, u[:, 0], eop, rows_grid=0, **kw)
+    for grid in (None, 1, 3, k):
+        got = fs._leapfrog_cuda(x, v, u[:, 0], eop, rows_grid=grid, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), grid
 
 
 def _assert_energies_close(got, ref, kind):

@@ -27,8 +27,10 @@ from plasma_control_tpu_torch.control.actuator import make_actuator
 from plasma_control_tpu_torch.interop import state_from_numpy
 from plasma_control_tpu_torch.ops.grid import make_grid
 from plasma_control_tpu_torch.ops.kernels import _build
+from plasma_control_tpu_torch.ops.kernels.spectral_horizon import _state_floats
 from plasma_control_tpu_torch.ops.kernels.spectral_horizon import (
-    launch_geometry, spectral_horizon, spectral_horizon_supported, state_in_shared,
+    Geometry, launch_geometry, scratch_shape, spectral_horizon, spectral_horizon_supported,
+    state_in_shared,
 )
 
 torch.set_num_threads(1)
@@ -104,6 +106,48 @@ def test_path_shapes_placement(n, km, shared):
     geo = launch_geometry(n, True, km)
     assert (geo.shared_bytes > 0) == shared
     assert geo.cluster == (16 if n >= 320_000 else 4 if n == 20_000 else 2)
+
+
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+@pytest.mark.parametrize("n,km,k", [(1_000_000, 32, 16), (320_000, 16, 32), (308_049, 8, 3),
+                                    (2_500_001, 64, 2)])
+def test_global_scratch_layout(n, km, k, rot):
+    """The state in the global scratch (the million path's chunk, the
+    [global] check shape, just past the shared limit, and an odd N at 64
+    modes): clusters of 16 CTAs; CTA r of candidate c (row c * 16 + r of the
+    scratch) owns particles [r S, min((r + 1) S, N)), every particle once; a
+    row holds _state_floats(rot, in_global=True) = 3 floats a particle for
+    rot (c1, s1, vh) and 2 for trig (x, vh), S of each."""
+    geo = launch_geometry(n, rot, km)
+    assert geo.cluster == 16 and geo.shared_bytes == 0 and geo.slice == -(-n // 16)
+    assert _state_floats(rot, in_global=True) == (3 if rot else 2)
+    rows, width = scratch_shape(k, geo, rot)
+    assert (rows, width) == (k * geo.cluster, _state_floats(rot, in_global=True) * geo.slice)
+    owners = np.zeros(n, dtype=np.int8)
+    for r in range(geo.cluster):
+        lo = min(r * geo.slice, n)
+        cnt = min(geo.slice, n - lo)
+        assert 0 <= cnt <= geo.slice  # the row's slice holds the CTA's particles
+        owners[lo:lo + cnt] += 1
+    assert (owners == 1).all()
+
+
+@pytest.mark.parametrize("n,rot,km,geo", [
+    (5000, True, 8, (1, 5000, 60000)), (10_000, True, 16, (2, 5000, 60000)),
+    (20_000, True, 16, (4, 5000, 60000)), (20_000, False, 16, (8, 2500, 40000)),
+    (100_000, True, 16, (16, 6250, 75000)), (100_000, False, 16, (16, 6250, 100000)),
+    (20_000, True, 32, (4, 5000, 60000)), (10_000, True, 32, (2, 5000, 60000)),
+    (308_048, True, 16, (16, 19253, 231036)), (231_040, False, 16, (16, 14440, 231040)),
+])
+def test_shared_memory_geometry_is_unchanged(n, rot, km, geo):
+    """Where the state fits the cluster's shared memory (the spectral, twin,
+    config-4, [km32] shapes and the two limits), the geometry is the one
+    the kernel's shared-memory path has always been launched with, 3 or 4
+    floats a particle, and no scratch."""
+    got = launch_geometry(n, rot, km)
+    assert got == Geometry(*geo) and state_in_shared(n, rot, km)
+    assert got.shared_bytes == 4 * _state_floats(rot) * got.slice == 4 * (3 if rot else 4) * got.slice
+    assert scratch_shape(384, got, rot) is None
 
 
 # experiments/million_r5.py:51-53, 118-121 cut to a CPU test: N=2000 on 64
