@@ -80,6 +80,24 @@ any failure exits non-zero:
       of its state on kernels 2-3;
    i. three control steps of the twin slice at ``plan_modes=32``: kernel
       1c beyond 16 modes, one launch per solve;
+   j. ``feedback_rollout`` at config-4's environment (N=100000, M=256,
+      max_mode 8, CIC kernels), all 500 steps from the twin slice's seeded
+      state, the card synchronised after each step: 2500 launches of kernel
+      2 and 1500 of kernel 3; tail PE beside the uncontrolled rollout's;
+   k. ``bench_scaling.py:96-131``'s controller-damping row at its full
+      shapes (bump-on-tail, N=10000, M=128, 300 steps, max_mode 3; MPC
+      K=384, H=6, Km=8, w_terminal 4): uncontrolled, feedback and MPC from
+      one seeded state, 300 launches of kernel 1 for MPC; decay-phase gamma,
+      time to stay below 2x the MPC floor and tail PE reported;
+   l. ``rollout_batch`` of 8 config-4 states for 20 steps: one launch of
+      kernel 2 or 3 per batched deposit or gather (81 and 60), each row
+      within 1e-5 relative PE of its single rollout;
+   m. the reference DDPG controller's two-stream run
+      (``tests/data/ddpg_golden_two_stream.npz``) replayed through
+      ``rollout`` on kernels 2-3: PE(0) within 1e-5, 499 steps within 1 %;
+   n. ``main()`` of the port's ``run_wo_oc``, ``run_feedback`` and
+      ``run_lqr`` at their CLI defaults (N=5000, M=250, 500 steps, dense
+      deposit) with ``--is_save``: a data.npz with finite PE each;
 5. check one candidate block and a three-step closed loop on the card
    against the same computation on the CPU, where every wrapper runs its
    plain version: the spectral slice from its initial state; the grid slice
@@ -88,12 +106,14 @@ any failure exits non-zero:
    that the loop applies a drive on both sides; the twin slice with one
    corrected candidate block of 128 and a three-step loop at K=64 with the
    guard off (``experiments/config4_frontier.py:92-95``), so that the
-   corrected costs drive on both sides;
+   corrected costs drive on both sides; a 3-step feedback and a 3-step
+   LQR loop (one seeded gain) at config-4's environment on kernels 2-3;
 6. launch kernel 1 at the million path's chunk (its state in the global
    scratch) and kernel 4 at the grid slice's plan model (every kind, exact
    or not) twice each and require bitwise equal results; then run the
-   spectral, the grid and the twin slice twice for 20 control steps from
-   one seed and report whether the two runs end in bitwise the same state.
+   spectral, the grid and the twin slice and the feedback loop twice for
+   20 steps from one seed and report whether the two runs end in bitwise
+   the same state.
 
 The last two lines of standard output are one JSON object per kernel
 (launches in its path's run, error against the plain version, times, the
@@ -140,6 +160,16 @@ TWIN_FLAGS = ["--simcase", "two-stream", "--num_particle", "100000", "--num_mesh
               "--max_mode", "8", "--n_candidates", "1024", "--plan_particles", "10000",
               "--plan_mesh", "64", "--plan_correction", "twin"]
 ENTRY_STEPS = 50  # --t_max 5 at dt 0.1
+# bench_scaling.py:96-131's "2-controller-damping" row at its full shapes:
+# uncontrolled, feedback and MPC from one seeded bump-on-tail state
+DAMPING_SIM = dict(simcase="bump-on-tail", n_particles=10_000, n_mesh=128, dt=0.1, t_max=30.0,
+                   deposit_method="pallas")
+DAMPING_MAX_MODE = 3
+DAMPING_MPC = dict(horizon=6, w_terminal=4.0, n_candidates=384, plan_modes=8)
+BATCH, BATCH_STEPS = 8, 20
+GOLDEN_CASE = "two_stream"  # tests/data/ddpg_golden_two_stream.npz, 499 replay steps
+ENTRY_SCRIPTS = (("wo-oc", "run_wo_oc", "wo-oc"), ("feedback", "run_feedback", "feedback"),
+                 ("lqr", "run_lqr", "lqr-control"))
 # the repo's million-particle 32-mode controller, unreduced
 # (experiments/million_r5.py:51-53, 118-121, fullfid_K384_wt4_wraw05_cm2_mm16):
 # two-stream, N=1M, M=256, scatter deposit; 16 actuated modes at +-2; K=384
@@ -258,28 +288,39 @@ def queued_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILER_WINDOWS = 8
+
+
 def device_ms(torch, fn, kernel: str | None, reps: int = 20) -> tuple[float, float]:
     """(median device time in ms of the kernels whose name contains
     ``kernel``, device ops per call) over ``reps`` calls of ``fn``, from a
     profiler trace: kernels, copies and sets on the device. ``kernel=None``:
-    the mean device time of all of a call's kernels together. A trace that
-    missed the window's device events (the profiler drops a window now and
-    then over the many this run opens) is taken again, up to three times."""
+    the mean device time of all of a call's kernels together. Each window
+    records ``reps`` calls after a warm-up step of ``reps`` calls whose
+    events are discarded, so that the tracer has started before the recorded
+    calls. A trace that still missed the window's device events (the
+    profiler drops a window now and then over the many this run opens) is
+    taken again, up to ``PROFILER_WINDOWS`` times, each miss logged; then the
+    run fails."""
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
-    for _attempt in range(3):
+    for attempt in range(PROFILER_WINDOWS):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
-            prof.export_chrome_trace(f"{tmp}/trace.json")
-            with open(f"{tmp}/trace.json") as f:
+            path = f"{tmp}/trace.json"
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                         on_trace_ready=lambda p, path=path: p.export_chrome_trace(path)) as prof:
+                for _step in range(2):  # warm-up, then the recorded window
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            with open(path) as f:
                 trace = json.load(f)
         events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("ph") == "X"]
@@ -287,13 +328,17 @@ def device_ms(torch, fn, kernel: str | None, reps: int = 20) -> tuple[float, flo
         if kernel is None:
             if kernels:
                 return sum(e["dur"] for e in kernels) / 1e3 / reps, len(events) / reps
+            log(f"[profiler] window {attempt + 1} of {PROFILER_WINDOWS} for all kernels: "
+                f"no kernel events for {reps} calls")
             continue
         # the trace may miss an event at the start of the window
         ours = [e["dur"] for e in kernels if kernel in e["name"]]
         if reps - 2 <= len(ours) <= reps:
             return statistics.median(ours) / 1e3, len(events) / len(ours)
-    require(False, f"device time of {kernel}: {len(ours) if kernel else 0} launches in {reps} "
-            f"calls, three windows")
+        log(f"[profiler] window {attempt + 1} of {PROFILER_WINDOWS} for {kernel}: {len(ours)} "
+            f"kernel events for {reps} calls")
+    require(False, f"device time of {kernel or 'all kernels'}: no profiler window of "
+            f"{PROFILER_WINDOWS} held the calls' device events")
 
 
 def find_card(torch) -> str:
@@ -1637,6 +1682,231 @@ def run_entry_point(torch) -> None:
         f"{float(run['cost'][r'$J_{ee}$'][-1]):.6g}, J_ie sum {float(run['cost'][r'$J_{ie}$'].sum()):.6g}")
 
 
+def run_feedback(torch) -> None:
+    """Phase 4j: ``feedback_rollout`` at config-4's environment (two-stream,
+    N=100000, M=256, max_mode 8, CIC kernels), all 500 steps from the seeded
+    state the twin slice's uncontrolled rollout starts from, one step per
+    call with the card synchronised after each (the law depends on the state
+    only, so the calls chain into one 500-step run): five launches of kernel
+    2 and three of kernel 3 per step; then the uncontrolled rollout from the
+    same state."""
+    from plasma_control_tpu_torch.control.feedback import feedback_rollout
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.models.rollout import rollout
+
+    dev = torch.device("cuda")
+    cfg, ctrl, _, grid, act = _setup(torch, dev, sim=CFG4_SIM, max_mode=CFG4_MAX_MODE)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    steps = cfg.n_steps
+    feedback_rollout(state, grid, cfg, ctrl, act, n_steps=3)  # warm-up
+    fns = _kernel_fns()
+    _reset(fns)
+    st, outs, times = state, [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = feedback_rollout(st, grid, cfg, ctrl, act, n_steps=1)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        st = out.final_state
+        outs.append(out)
+    launches = _counts(fns)
+    pe = torch.cat([o.field_energy for o in outs])
+    ie = torch.cat([o.input_energy for o in outs])
+    log(f"[feedback] {steps} steps at N={cfg.n_particles}, M={cfg.n_mesh}, max_mode "
+        f"{ctrl.max_mode}; launches {launches}")
+    require(launches["deposit_cic"] == 5 * steps and launches["gather_cic"] == 3 * steps,
+            "five deposits and three gathers per feedback step")
+    require(sum(launches.values()) == 8 * steps, "no other kernel in the feedback loop")
+    base = rollout(state, grid, cfg)
+    require(pe.shape == ie.shape == (steps,), "feedback traces' shape")
+    for name, t in (("feedback PE", pe), ("input energy", ie), ("uncontrolled PE", base.field_energy)):
+        require(bool(torch.isfinite(t).all()), f"{name} not finite")
+    log(f"[feedback] ms per step (synchronised each step): median {statistics.median(times):.4f}, "
+        f"min {min(times):.4f}, max {max(times):.4f}; {steps / (sum(times) / 1e3):.2f} steps/s")
+    log(f"[feedback] tail PE (mean of last 20 steps): feedback {float(pe[-20:].mean()):.6g}, "
+        f"uncontrolled {float(base.field_energy[-20:].mean()):.6g}; input energy: total "
+        f"{float(ie.sum()):.6g}, mean per step {float(ie.mean()):.6g}")
+
+
+def run_damping(torch) -> None:
+    """Phase 4k: bench_scaling.py's "2-controller-damping" row through the
+    port at its full shapes (DAMPING_*: bump-on-tail, N=10000, M=128, 300
+    steps, max_mode 3; MPC K=384, H=6, Km=8, w_terminal 4; CIC kernels):
+    uncontrolled, feedback and MPC from one seeded state. The decay-phase
+    gamma, the time to stay below 2x the MPC floor and the tail PE (mean of
+    the last 60) are reported, not asserted (one seed); the launch counts
+    and finiteness are asserted."""
+    import numpy as np
+
+    from plasma_control_tpu_torch.control.feedback import feedback_rollout
+    from plasma_control_tpu_torch.control.mpc import mpc_rollout
+    from plasma_control_tpu_torch.diag.landau import damping_rate_decay_phase, time_to_pe_threshold
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.models.rollout import rollout
+
+    dev = torch.device("cuda")
+    cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=DAMPING_SIM, max_mode=DAMPING_MAX_MODE,
+                                       mpc=DAMPING_MPC)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    steps = cfg.n_steps
+    fns = _kernel_fns()
+    runs, walls = {}, {}
+    for name in ("uncontrolled", "feedback", "mpc"):
+        _reset(fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "uncontrolled":
+            pe = rollout(state, grid, cfg).field_energy[1:]
+        elif name == "feedback":
+            pe = feedback_rollout(state, grid, cfg, ctrl, act).field_energy
+        else:
+            pe = mpc_rollout(state, grid, cfg, ctrl, mpc, act,
+                             torch.Generator(device=dev).manual_seed(1)).field_energy
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches = _counts(fns)
+        require(pe.shape == (steps,) and bool(torch.isfinite(pe).all()), f"[damping] {name} PE")
+        want = {"uncontrolled": (4 * steps + 1, 3 * steps, 0), "feedback": (5 * steps, 3 * steps, 0),
+                "mpc": (None, 3 * steps, steps)}[name]
+        got = (launches["deposit_cic"], launches["gather_cic"], launches["spectral_horizon"])
+        require(all(w is None or w == g for w, g in zip(want, got)),
+                f"[damping] {name}: launches (deposit, gather, spectral_horizon) {got}, want {want}")
+        log(f"[damping] {name}: {steps} steps, {1e3 * walls[name] / steps:.4f} ms per step; "
+            f"launches {launches}")
+        runs[name] = pe.cpu().numpy()
+    ts = np.linspace(0.0, cfg.t_max, steps)
+    thresh = 2.0 * float(np.mean(runs["mpc"][-60:]))
+    for name, pe in runs.items():
+        t_below = time_to_pe_threshold(ts, pe, thresh)
+        log(f"[damping] {name}: decay-phase gamma {damping_rate_decay_phase(ts, pe):.6g}, time to "
+            f"stay below 2x the MPC floor ({thresh:.6g}) {t_below:.4g}, tail PE (mean of last 60) "
+            f"{float(np.mean(pe[-60:])):.6g}")
+
+
+def run_batch(torch) -> None:
+    """Phase 4l: ``rollout_batch`` of B=8 seeded config-4 states (N=100000,
+    M=256, CIC kernels) under eight drives for 20 steps: one launch of
+    kernel 2 per batched deposit (the initial energies, then 4 per step) and
+    of kernel 3 per batched gather (3 per step); each row against its own
+    single rollout, PE at step 20 within 1e-5 relative (the batched solve is
+    a GEMM where a single one is a GEMV), bitwise equality reported."""
+    from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
+    from plasma_control_tpu_torch.models.rollout import rollout, rollout_batch
+
+    dev = torch.device("cuda")
+    cfg, ctrl, _, grid, act = _setup(torch, dev, sim=CFG4_SIM, max_mode=CFG4_MAX_MODE)
+    rows = [init_state(cfg, torch.Generator(device=dev).manual_seed(100 + b), device=dev)
+            for b in range(BATCH)]
+    states = PlasmaState(torch.stack([r.x for r in rows]), torch.stack([r.v for r in rows]))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    trajs = act.compute_e_packed(0.2 * torch.randn((BATCH, BATCH_STEPS, 2 * ctrl.max_mode),
+                                                   generator=gen, device=dev))
+    rollout_batch(states, grid, cfg, trajs, n_steps=2)  # warm-up
+    fns = _kernel_fns()
+    _reset(fns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = rollout_batch(states, grid, cfg, trajs, n_steps=BATCH_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(fns)
+    log(f"[batch] rollout_batch B={BATCH}, N={cfg.n_particles}, M={cfg.n_mesh}, {BATCH_STEPS} "
+        f"steps: {1e3 * wall / BATCH_STEPS:.4f} ms per step; launches {launches}")
+    require(launches["deposit_cic"] == 4 * BATCH_STEPS + 1
+            and launches["gather_cic"] == 3 * BATCH_STEPS,
+            "one deposit launch per batched deposit, one gather launch per batched gather")
+    require(out.field_energy.shape == (BATCH, BATCH_STEPS + 1)
+            and bool(torch.isfinite(out.field_energy).all()), "batched PE")
+    singles = [rollout(rows[b], grid, cfg, trajs[b], n_steps=BATCH_STEPS) for b in range(BATCH)]
+    pe1 = torch.stack([o.field_energy for o in singles])
+    rel = float(((out.field_energy[:, -1] - pe1[:, -1]).abs() / pe1[:, -1].abs()).max())
+    same = torch.equal(out.field_energy, pe1) and all(
+        torch.equal(out.final_state.x[b], singles[b].final_state.x) for b in range(BATCH))
+    require(rel <= 1e-5, f"[batch] PE at step {BATCH_STEPS}: max rel {rel:.3g} against the singles")
+    log(f"[batch] against the eight single rollouts: PE at step {BATCH_STEPS} max rel {rel:.3g} "
+        f"(tolerance 1e-5); bitwise equal: {same}")
+
+
+def run_golden(torch) -> None:
+    """Phase 4m: the reference DDPG controller's recorded two-stream run
+    (tests/data/ddpg_golden_two_stream.npz) replayed through the port's
+    ``rollout(e_external_traj=...)`` on the card with the CIC kernels: PE(0)
+    within 1e-5 and all 499 steps within the JAX golden test's 1 %."""
+    import os
+
+    import numpy as np
+
+    from plasma_control_tpu_torch.config import SimConfig
+    from plasma_control_tpu_torch.interop import state_from_numpy, tensor_from_numpy
+    from plasma_control_tpu_torch.models.rollout import rollout
+    from plasma_control_tpu_torch.ops.grid import make_grid
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = np.load(os.path.join(root, "tests", "data", f"ddpg_golden_{GOLDEN_CASE}.npz"))
+    n_mesh, length, dt = int(d["n_mesh"]), float(d["length"]), float(d["dt"])
+    steps = int(d["pe"].shape[0]) - 1
+    cfg = SimConfig(simcase=str(d["simcase"]), n_particles=int(d["n_particles"]), n_mesh=n_mesh,
+                    dt=dt, t_max=dt * steps, length=length, deposit_method="pallas")
+    # actuator fields of replay steps 1..T-1 on the reference's endpoint mesh
+    cc, cs = d["coeff_cos"], d["coeff_sin"]
+    k = 2.0 * np.pi / length * np.arange(1, cc.shape[0] + 1)
+    xm = np.linspace(0.0, length, n_mesh)
+    e_traj = (np.cos(np.outer(xm, k)) @ cc[:, 1:] + np.sin(np.outer(xm, k)) @ cs[:, 1:]).T
+    dev = torch.device("cuda")
+    fns = _kernel_fns()
+    _reset(fns)
+    out = rollout(state_from_numpy(d["x0"], d["v0"], device=dev), make_grid(n_mesh, length, device=dev),
+                  cfg, e_external_traj=tensor_from_numpy(e_traj, device=dev), n_steps=steps)
+    pe = out.field_energy.cpu().numpy()
+    launches = _counts(fns)
+    ref = d["pe"]
+    rel0 = abs(pe[0] - ref[0]) / abs(ref[0])
+    rel = np.abs(pe[1:] - ref[1:]) / np.abs(ref[1:])
+    log(f"[golden] {GOLDEN_CASE}: {steps} replay steps at N={cfg.n_particles}, M={n_mesh}; "
+        f"launches {launches}; PE(0) rel {rel0:.3g} (1e-5), max rel over the trace "
+        f"{rel.max():.4g} at step {int(rel.argmax()) + 1} (0.01)")
+    require(launches["deposit_cic"] == 4 * steps + 1 and launches["gather_cic"] == 3 * steps,
+            "[golden] the replay runs on kernels 2-3")
+    require(rel0 < 1e-5 and rel.max() < 0.01, "[golden] PE trace against the reference's")
+
+
+def run_entry_scripts(torch) -> None:
+    """Phase 4n: ``main()`` of the port's uncontrolled, feedback and LQR
+    entry points at their CLI defaults (two-stream, N=5000, M=250, 500
+    steps, dense deposit; LQR identification 6 x 150 steps) with
+    ``--is_save`` into a git-ignored directory, removed afterwards: each
+    writes a data.npz with finite PE."""
+    import importlib
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from plasma_control_tpu_torch.io.export import load_run
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dataset")
+    os.makedirs(data, exist_ok=True)
+    fns = _kernel_fns()
+    for phase, module, tag in ENTRY_SCRIPTS:
+        script = importlib.import_module(f"plasma_control_tpu_torch.{module}")
+        with tempfile.TemporaryDirectory(dir=data) as tmp:
+            argv = ["--is_save", "--save_file", f"{tmp}/data", "--save_plot", f"{tmp}/plots"]
+            _reset(fns)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            script.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run = load_run(f"{tmp}/data/two-stream/{tag}/data.npz")
+        steps = run["snapshot"].shape[1] - 1
+        require(run["snapshot"].shape == (10000, 501) and bool(np.isfinite(run["PE"]).all()),
+                f"[entry-{phase}] data.npz: snapshot {run['snapshot'].shape}, PE finite")
+        log(f"[entry-{phase}] python -m plasma_control_tpu_torch.{module} (CLI defaults, "
+            f"--is_save): {wall:.3f} s wall, {steps} steps; tail PE (mean of last 20) "
+            f"{float(np.mean(run['PE'][-20:])):.6g}; launches {_counts(fns)}")
+
+
 def check_twin_against_cpu(torch) -> None:
     """Phase 5, third part: the twin slice on the card against the CPU, where
     every wrapper runs its plain version (``plan_kernel="fused"`` on both
@@ -1683,6 +1953,44 @@ def check_twin_against_cpu(torch) -> None:
         f"(rtol 2e-4); 3-step unguarded loop at K=64 from a coherent state: PE {pe_gpu.tolist()} vs {pe_cpu.tolist()} "
         f"(rtol 1e-2), actions max |a| {float(a_gpu.abs().max()):.3g}, max |diff| "
         f"{float((a_gpu - a_cpu).abs().max()):.3g} (atol 1e-2)")
+
+
+def check_new_loops_against_cpu(torch) -> None:
+    """Phase 5, fourth part: a 3-step ``feedback_rollout`` and a 3-step
+    ``lqr_rollout`` (six lags, one seeded gain handed to both sides) at
+    config-4's environment with the CIC kernels, on the card against the
+    CPU's plain versions from one seeded state. The deposits sum in another
+    order on the CPU (3 steps of two CPU deposit methods differ by ~2e-5
+    relative in PE): PE rtol 1e-3, coefficients atol 1e-4 (feedback) and
+    1e-3 (LQR, whose gain amplifies the observable)."""
+    from plasma_control_tpu_torch.control.feedback import feedback_rollout
+    from plasma_control_tpu_torch.control.sysid import lqr_rollout
+    from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
+
+    cfg, ctrl, _, _, _ = _setup(torch, "cpu", sim=CFG4_SIM, max_mode=CFG4_MAX_MODE)
+    start = init_state(cfg, torch.Generator().manual_seed(21), device="cpu")
+    n_lags, d = 6, 2 * ctrl.max_mode
+    gain = torch.randn((d, d * (2 * n_lags - 1)), generator=torch.Generator().manual_seed(22))
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg, ctrl, _, grid, act = _setup(torch, device, sim=CFG4_SIM, max_mode=CFG4_MAX_MODE)
+        st = PlasmaState(start.x.to(device), start.v.to(device))
+        fb = feedback_rollout(st, grid, cfg, ctrl, act, n_steps=3)
+        lq = lqr_rollout(st, gain.to(device), grid, act, cfg, ctrl, n_lags=n_lags, n_steps=3)
+        out[device] = [t.cpu() for t in (fb.field_energy, fb.coeff_cos, fb.coeff_sin,
+                                         lq.field_energy, lq.coeffs)]
+    (fpe, fc, fs, lpe, lu), (fpe0, fc0, fs0, lpe0, lu0) = out["cuda"], out["cpu"]
+    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())
+    log(f"[loops] card vs CPU plain, 3 steps at N={cfg.n_particles}, M={cfg.n_mesh}: feedback PE "
+        f"max rel {rel(fpe, fpe0):.3g} (rtol 1e-3), coefficients max |diff| "
+        f"{float(max((fc - fc0).abs().max(), (fs - fs0).abs().max())):.3g} (atol 1e-4); LQR PE "
+        f"max rel {rel(lpe, lpe0):.3g} (rtol 1e-3), actions max |a| {float(lu.abs().max()):.3g}, "
+        f"max |diff| {float((lu - lu0).abs().max()):.3g} (atol 1e-3)")
+    require(torch.allclose(fpe, fpe0, rtol=1e-3) and torch.allclose(fc, fc0, rtol=0, atol=1e-4)
+            and torch.allclose(fs, fs0, rtol=0, atol=1e-4), "feedback loop: card vs CPU")
+    require(float(lu.abs().max()) > 1e-3, "the LQR loop applies a drive")
+    require(torch.allclose(lpe, lpe0, rtol=1e-3) and torch.allclose(lu, lu0, rtol=0, atol=1e-3),
+            "LQR loop: card vs CPU")
 
 
 def check_loops_repeat(torch) -> None:
@@ -1746,6 +2054,18 @@ def check_loops_repeat(torch) -> None:
             f"{'in every output' if all(same.values()) else same}"
             f"{'' if first is None else f'; PE first differs at step {first}'}")
 
+    from plasma_control_tpu_torch.control.feedback import feedback_rollout
+
+    cfg, ctrl, _, grid, act = _setup(torch, dev, sim=CFG4_SIM, max_mode=CFG4_MAX_MODE)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    runs = [feedback_rollout(state, grid, cfg, ctrl, act, n_steps=20) for _ in range(2)]
+    same = {name: torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+            for name in ("field_energy", "coeff_cos", "coeff_sin")}
+    same["x"] = torch.equal(runs[0].final_state.x, runs[1].final_state.x)
+    same["v"] = torch.equal(runs[0].final_state.v, runs[1].final_state.v)
+    log(f"[repeat] feedback loop at config-4's environment, 20 steps twice: bitwise the same "
+        f"{'in every output' if all(same.values()) else same}")
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1804,9 +2124,15 @@ def main() -> int:
     run_entry_point(torch)
     run_million(torch, rows)
     run_twin_km32(torch, rows)
+    run_feedback(torch)
+    run_damping(torch)
+    run_batch(torch)
+    run_golden(torch)
+    run_entry_scripts(torch)
     check_against_cpu(torch)
     check_grid_against_cpu(torch, end_state)
     check_twin_against_cpu(torch)
+    check_new_loops_against_cpu(torch)
     check_loops_repeat(torch)
     log(f"[total] {time.perf_counter() - t_start:.1f} s wall, build included")
 

@@ -1,9 +1,11 @@
 """Command-line machinery of the port's run scripts.
 
-The counterpart of :mod:`plasma_control_tpu.cli` for the MPC entry point:
-the same flags, defaults and choices (``base_parser``, ``add_control_args``,
-``add_mpc_args``), the same config builders, the cost traces and the data
-dump of ``run_and_save``. The JAX package's ``run_and_save`` also draws the
+The counterpart of :mod:`plasma_control_tpu.cli` for the port's entry points
+(``run_wo_oc``, ``run_feedback``, ``run_mpc``, ``run_lqr``): the same flags,
+defaults and choices (``base_parser``, ``add_control_args``,
+``add_mpc_args``, and the resume flags the JAX scripts declare), the same
+functions that build the configs, the cost traces and the data dump of
+``run_and_save``. The JAX package's ``run_and_save`` also draws the
 reference's plot set; that waits for the port's ``viz`` slice, so here it
 writes the data only.
 """
@@ -19,8 +21,9 @@ import torch
 
 from .config import ControlConfig, MPCConfig, SimConfig
 
-__all__ = ["base_parser", "add_control_args", "add_mpc_args", "build_sim_config",
-           "build_control_config", "build_mpc_config", "compute_cost_traces", "run_and_save"]
+__all__ = ["base_parser", "add_control_args", "add_mpc_args", "add_resume_args", "reject_resume",
+           "build_sim_config", "build_control_config", "build_mpc_config", "compute_cost_traces",
+           "high_indices", "run_and_save"]
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -120,6 +123,24 @@ def add_mpc_args(p: argparse.ArgumentParser):
     return p
 
 
+def add_resume_args(p: argparse.ArgumentParser,
+                    every_help: str = "steps between full-state checkpoints (0 = off)"):
+    """The JAX scripts' segmented-resume flags; :func:`reject_resume` refuses
+    them until ``io/resume`` is ported."""
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help=every_help + "; not ported yet (io/resume)")
+    p.add_argument("--checkpoint_path", type=str, default=None)
+    p.add_argument("--no_resume", action="store_true", help="ignore an existing checkpoint")
+    return p
+
+
+def reject_resume(args: dict) -> None:
+    """Raise before any work if a resume flag is set."""
+    if args["checkpoint_every"] or args["checkpoint_path"] or args["no_resume"]:
+        raise NotImplementedError("--checkpoint_every / --checkpoint_path / --no_resume: "
+                                  "segmented resume (io/resume) is not ported to PyTorch yet")
+
+
 def build_sim_config(args: dict) -> SimConfig:
     return SimConfig(
         simcase=args["simcase"],
@@ -198,6 +219,16 @@ def compute_cost_traces(snapshot, cfg: SimConfig, ctrl: ControlConfig, coeffs=No
         actions = torch.as_tensor(coeffs, dtype=torch.float32, device=device)
         costs[r"$J_{ie}$"] = torch.stack([reward.compute_input_energy(a) for a in actions]).cpu().numpy()
     return costs
+
+
+def high_indices(cfg: SimConfig) -> Optional[np.ndarray]:
+    """The bump-on-tail beam's particle indices (the plots mark them), else
+    None."""
+    if cfg.simcase != "bump-on-tail":
+        return None
+    from .models.distributions import make_distribution
+
+    return make_distribution(cfg).high_indices().numpy()
 
 
 def run_and_save(

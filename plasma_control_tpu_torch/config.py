@@ -92,7 +92,9 @@ class MPCConfig:
     model, at full or reduced fidelity with the fidelity guard and the
     twin-corrected cost, chunked costs and knot, white or AR(1) noise.
     ``control/mpc.py`` raises ``NotImplementedError`` for gradient refinement
-    (``n_grad_iters > 0``), the one setting it does not run yet.
+    (``n_grad_iters > 0``), the one setting it does not run yet; it needs
+    autograd through the ``dense``/``scatter`` deposit, not a backward CIC
+    kernel.
     """
 
     horizon: int = 10  # planning horizon in env steps

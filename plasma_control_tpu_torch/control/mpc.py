@@ -39,8 +39,11 @@ JAX's ``vmap`` over candidates becomes a candidate batch dimension and its
 ``torch.Generator``; ``plan(noise=...)`` and ``mpc_rollout(step_noise=...)``
 take the unit-variance draws instead, which is how the tests hand both
 packages the same noise. Gradient refinement (``n_grad_iters > 0``) raises
-``NotImplementedError`` (:func:`_check_supported`): it needs autograd through
-the CIC kernels, which have no backward kernel.
+``NotImplementedError`` (:func:`_check_supported`): it is not ported yet. It
+needs no backward CIC kernel: the JAX package differentiates through the
+environment's ``dense`` or ``scatter`` deposit, and cannot differentiate its
+own Pallas CIC kernels either, so the port can use autograd through the same
+two methods.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Open-loop rollouts.
 
-The counterpart of :mod:`plasma_control_tpu.models.rollout` (``_energies``,
-``rollout`` with optional snapshots and ``snapshot_from_rollout``;
-``rollout_batch`` is not ported yet). JAX's ``lax.scan`` over time becomes a
-Python loop.
+The counterpart of :mod:`plasma_control_tpu.models.rollout`. JAX's
+``lax.scan`` over time becomes a Python loop, and its ``vmap`` over a batch
+(``rollout_batch``) a leading batch dimension of every tensor: each batched
+deposit or gather is one call (one kernel launch) for all rows.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from ..ops.fields import electric_energy, kinetic_energy, solve_e_mesh
 from ..ops.grid import Grid
 from .pic import PlasmaState, step
 
-__all__ = ["RolloutOutput", "rollout", "snapshot_from_rollout"]
+__all__ = ["RolloutOutput", "rollout", "rollout_batch", "snapshot_from_rollout"]
 
 
 class RolloutOutput(NamedTuple):
@@ -49,8 +49,9 @@ def rollout(
     """Open-loop rollout for ``n_steps`` (default ``cfg.n_steps``).
 
     ``e_external_traj``: optional (T, M) external mesh field, held over each
-    step. Energies are recorded for the initial state and after every step;
-    with ``record_snapshots`` the positions and velocities too, as (T+1, N)
+    step ((T, B, M) for a (B, N) state). Energies are recorded for the
+    initial state and after every step, (T+1,) or (B, T+1); with
+    ``record_snapshots`` the positions and velocities too, as (T+1, N)
     ``xs`` and ``vs`` on the state's device.
     """
     t = n_steps if n_steps is not None else cfg.n_steps
@@ -65,7 +66,7 @@ def rollout(
         if record_snapshots:
             xs.append(state.x)
             vs.append(state.v)
-    pe_all, ke_all = torch.stack(pes), torch.stack(kes)
+    pe_all, ke_all = torch.stack(pes, dim=-1), torch.stack(kes, dim=-1)
     return RolloutOutput(
         final_state=state,
         field_energy=pe_all,
@@ -74,6 +75,21 @@ def rollout(
         xs=torch.stack(xs) if record_snapshots else None,
         vs=torch.stack(vs) if record_snapshots else None,
     )
+
+
+def rollout_batch(
+    states: PlasmaState,
+    grid: Grid,
+    cfg: SimConfig,
+    e_external_trajs: Optional[torch.Tensor] = None,
+    n_steps: Optional[int] = None,
+) -> RolloutOutput:
+    """:func:`rollout` of a batch without snapshots: ``states`` holds (B, N)
+    tensors and ``e_external_trajs`` is (B, T, M) or None. The B rows run as
+    one batch dimension, not a loop over B; the energies come out as
+    (B, T+1), as from JAX's ``vmap``."""
+    trajs = None if e_external_trajs is None else e_external_trajs.transpose(0, 1)
+    return rollout(states, grid, cfg, e_external_traj=trajs, n_steps=n_steps)
 
 
 def snapshot_from_rollout(out: RolloutOutput) -> torch.Tensor:

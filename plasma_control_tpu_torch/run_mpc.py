@@ -23,16 +23,18 @@ import torch
 from .cli import (
     add_control_args,
     add_mpc_args,
+    add_resume_args,
     base_parser,
     build_control_config,
     build_mpc_config,
     build_sim_config,
     compute_cost_traces,
+    high_indices,
+    reject_resume,
     run_and_save,
 )
 from .control.actuator import make_actuator
 from .control.mpc import _plan_frac, mpc_rollout, plan_fidelity_check
-from .models.distributions import make_distribution
 from .models.pic import init_state
 from .models.rollout import rollout, snapshot_from_rollout
 from .ops.grid import make_grid
@@ -40,13 +42,9 @@ from .ops.grid import make_grid
 
 def main(argv=None, device="cuda") -> None:
     """Parse ``argv`` (default ``sys.argv[1:]``) and run on ``device``."""
-    p = add_mpc_args(add_control_args(base_parser(
-        "PIC simulation with receding-horizon MPC E-field control")))
-    p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="env steps between full controller-state checkpoints (0 = off); "
-                        "not ported yet (io/resume)")
-    p.add_argument("--checkpoint_path", type=str, default=None)
-    p.add_argument("--no_resume", action="store_true", help="ignore an existing checkpoint")
+    p = add_resume_args(add_mpc_args(add_control_args(base_parser(
+        "PIC simulation with receding-horizon MPC E-field control"))),
+        every_help="env steps between full controller-state checkpoints (0 = off)")
     p.add_argument("--aot", type=str, default=None, metavar="ARTIFACT",
                    help="run the closed loop through a saved control-step artifact; not "
                         "ported yet (io/aot)")
@@ -57,9 +55,7 @@ def main(argv=None, device="cuda") -> None:
     if args["aot"] or args["save_aot"]:
         raise NotImplementedError("--aot / --save_aot: the control-step artifact slice "
                                   "(io/aot) is not ported to PyTorch yet")
-    if args["checkpoint_every"] or args["checkpoint_path"] or args["no_resume"]:
-        raise NotImplementedError("--checkpoint_every / --checkpoint_path / --no_resume: "
-                                  "segmented resume (io/resume) is not ported to PyTorch yet")
+    reject_resume(args)
     cfg = build_sim_config(args)
     ctrl = build_control_config(args)
     mpc = build_mpc_config(args)
@@ -102,14 +98,10 @@ def main(argv=None, device="cuda") -> None:
     coeff_cos = coeffs[:, : ctrl.max_mode].T
     coeff_sin = coeffs[:, ctrl.max_mode:].T
 
-    high_idx = None
-    if cfg.simcase == "bump-on-tail":
-        high_idx = make_distribution(cfg).high_indices().numpy()
-
     run_and_save(
         "mpc-control", args, cfg, ctrl, snapshot.cpu().numpy(), replay.hamiltonian.cpu().numpy(),
         replay.field_energy.cpu().numpy(), coeff_cos=coeff_cos, coeff_sin=coeff_sin,
-        costs=costs, high_idx=high_idx,
+        costs=costs, high_idx=high_indices(cfg),
     )
 
 

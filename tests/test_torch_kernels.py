@@ -758,3 +758,68 @@ def test_grid_candidate_costs_on_card_launch_the_kernels(dev, gen, plan_integrat
     ref = candidate_costs(cpu, cand.cpu(), make_grid(32, L, device="cpu"), cfg, mpc,
                           make_actuator(L, 32, 2, device="cpu"))
     torch.testing.assert_close(got.cpu(), ref, rtol=2e-4, atol=1e-5)
+
+
+def _no_plain(monkeypatch):
+    """Make the CIC kernels' plain versions raise: a CUDA tensor must never
+    reach them."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(cic, "deposit_cic_plain", refuse)
+    monkeypatch.setattr(cic, "gather_cic_plain", refuse)
+
+
+def _two_stream(gen, dev, n, batch=()):
+    x = torch.rand(batch + (n,), generator=gen, device=dev) * L
+    v = 0.5 * torch.randn(batch + (n,), generator=gen, device=dev)
+    v += torch.where(torch.arange(n, device=dev) < n // 2, 3.0, -3.0)
+    return PlasmaState(x, v)
+
+
+@pytest.mark.parametrize("record", [False, True], ids=["no-snapshots", "snapshots"])
+def test_feedback_rollout_on_card_launches_the_cic_kernels(dev, gen, monkeypatch, record):
+    """feedback_rollout with deposit_method="pallas" on CUDA tensors: five
+    launches of kernel 2 and three of kernel 3 per step, no plain version;
+    PE rtol 1e-4 and coefficients atol 1e-5 against the same loop on the
+    CPU's plain versions (six steps, N=20000, M=256)."""
+    from plasma_control_tpu_torch.config import ControlConfig
+    from plasma_control_tpu_torch.control.feedback import feedback_rollout
+
+    cfg = SimConfig(simcase="two-stream", n_particles=20000, n_mesh=256, deposit_method="pallas")
+    ctrl = ControlConfig(max_mode=8)
+    st = _two_stream(gen, dev, cfg.n_particles)
+    ref = feedback_rollout(PlasmaState(st.x.cpu(), st.v.cpu()), make_grid(256, L, device="cpu"),
+                           cfg, ctrl, make_actuator(L, 256, 8, device="cpu"), record, n_steps=6)
+    _no_plain(monkeypatch)
+    before = (cic.deposit_cic.launches, cic.gather_cic.launches)
+    got = feedback_rollout(st, make_grid(256, L, device=dev), cfg, ctrl,
+                           make_actuator(L, 256, 8, device=dev), record, n_steps=6)
+    assert (cic.deposit_cic.launches - before[0], cic.gather_cic.launches - before[1]) == (30, 18)
+    torch.testing.assert_close(got.field_energy.cpu(), ref.field_energy, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(got.coeff_cos.cpu(), ref.coeff_cos, rtol=0.0, atol=1e-5)
+    torch.testing.assert_close(got.coeff_sin.cpu(), ref.coeff_sin, rtol=0.0, atol=1e-5)
+    assert (got.xs is None) is not record
+
+
+@pytest.mark.parametrize("fields", [False, True], ids=["no-fields", "fields"])
+def test_rollout_batch_on_card_is_one_launch_per_batched_deposit(dev, gen, monkeypatch, fields):
+    """rollout_batch of B=8 rows on CUDA tensors: one launch of kernel 2 per
+    batched deposit (1 + 4 per step) and of kernel 3 per batched gather (3 per
+    step), no plain version; each row's PE within 1e-5 relative of its own
+    single rollout on the card after 5 steps."""
+    from plasma_control_tpu_torch.models.rollout import rollout, rollout_batch
+
+    cfg = SimConfig(simcase="two-stream", n_particles=20000, n_mesh=256, deposit_method="pallas")
+    grid = make_grid(256, L, device=dev)
+    st = _two_stream(gen, dev, cfg.n_particles, batch=(8,))
+    trajs = 0.05 * torch.randn((8, 5, 256), generator=gen, device=dev) if fields else None
+    _no_plain(monkeypatch)
+    before = (cic.deposit_cic.launches, cic.gather_cic.launches)
+    out = rollout_batch(st, grid, cfg, trajs, n_steps=5)
+    assert (cic.deposit_cic.launches - before[0], cic.gather_cic.launches - before[1]) == (21, 15)
+    assert out.field_energy.shape == (8, 6)
+    for b in range(8):
+        one = rollout(PlasmaState(st.x[b], st.v[b]), grid, cfg,
+                      None if trajs is None else trajs[b], n_steps=5)
+        torch.testing.assert_close(out.field_energy[b], one.field_energy, rtol=1e-5, atol=1e-7)
