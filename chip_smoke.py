@@ -39,7 +39,8 @@ any failure exits non-zero:
    scratch, every kind) and the grid planner's costs on a 4096-cell plan
    model (``[mesh]``, counted); kernel 3 at N=100000 and N=1M against its
    plain version, bitwise equal to its one-particle-per-thread reading, in
-   turns with ``grid_sample``;
+   turns with ``grid_sample``; kernels 2 and 3 at the damping row's
+   environment (N=10000, M=128);
 4. run the control loops, each with every launch count set to 0 just before
    it and read just after:
    a. the spectral slice, the repo's headline MPC configuration
@@ -98,6 +99,26 @@ any failure exits non-zero:
    n. ``main()`` of the port's ``run_wo_oc``, ``run_feedback`` and
       ``run_lqr`` at their CLI defaults (N=5000, M=250, 500 steps, dense
       deposit) with ``--is_save``: a data.npz with finite PE each;
+   o. the three committed DAgger actors (``artifacts/dagger_actor_*``, read
+      by the port's msgpack reader) closed-loop at tests/test_rl.py's
+      TestLearnedSuppression configurations on kernels 2-3 (4 deposits and
+      3 gathers per step), held to that test's tail-PE gates; ms per step
+      and the actor's forward time;
+   p. ``dagger_train`` with the MPC expert at run_dagger.py's CLI width
+      (N=5000, M=250, K=512, H=10, Km=16), 2 iterations of 100 epochs: one
+      launch of kernel 1 per expert solve (1500); then kernel 1 at those
+      shapes against its plain version, ms per solve and per BC epoch;
+   q. two episodes each of the DDPG, PPO and SAC trainers at their run
+      scripts' widths (DDPG with its 100000-transition replay buffer on the
+      card), kernels 2-3 in every env step; ms per env step and per update,
+      the buffer's bytes and the peak allocation;
+   r. ``plan`` with five gradient-refinement steps at the spectral slice's
+      shapes (dense deposit, which autograd differentiates): one launch of
+      kernel 1 per solve, ms per solve; the refinement on the card against
+      the CPU from one nominal, within 1e-4;
+   s. ``main()`` of ``run_dagger`` (the committed actor; and ``--optimize``
+      cut to one iteration), ``run_ddpg``, ``run_ppo`` and ``run_sac``
+      (``--optimize``, one episode) at their CLI defaults: data written;
 5. check one candidate block and a three-step closed loop on the card
    against the same computation on the CPU, where every wrapper runs its
    plain version: the spectral slice from its initial state; the grid slice
@@ -108,6 +129,7 @@ any failure exits non-zero:
    guard off (``experiments/config4_frontier.py:92-95``), so that the
    corrected costs drive on both sides; a 3-step feedback and a 3-step
    LQR loop (one seeded gain) at config-4's environment on kernels 2-3;
+   20 steps of the committed two-stream actor (PE within 1e-5 relative);
 6. launch kernel 1 at the million path's chunk (its state in the global
    scratch) and kernel 4 at the grid slice's plan model (every kind, exact
    or not) twice each and require bitwise equal results; then run the
@@ -182,6 +204,29 @@ MILLION_MPC = dict(n_candidates=384, w_input=0.0025, horizon=10, plan_modes=32, 
 MILLION_STEPS = 3
 # kernels 4-6 beyond 3631 cells: the grid slice's plan particles on 4096 cells
 WIDE_MESH = dict(n=1250, m=4096, k=8, h=4)
+# the committed DAgger actors at tests/test_rl.py's TestLearnedSuppression
+# configurations and gates: (simcase, environment, tail PE bound, bound as a
+# fraction of the uncontrolled tail PE or None)
+LEARNED = (
+    ("two-stream", dict(simcase="two-stream", n_particles=5000, n_mesh=250, dt=0.1, t_max=50.0),
+     250.0, 0.25),
+    ("bump-on-tail", dict(simcase="bump-on-tail", n_particles=5000, n_mesh=250, dt=0.1,
+                          t_max=50.0), 18.0, None),
+    ("landau", dict(simcase="landau", n_particles=2000, n_mesh=32, dt=0.1, t_max=15.0,
+                    perturb_amplitude=0.3, perturb_mode=2), 25.0, None),
+)
+LEARNED_MAX_MODE = 3
+# run_dagger.py --optimize at its CLI defaults (N=5000, M=250, 500 steps,
+# max_mode 3; K=512, H=10, Km=16), depth cut from 6 iterations x 400 epochs
+DAGGER_ITERS, DAGGER_EPOCHS = 2, 100
+# run_ddpg's min_buffer_size of 10000 would start the updates in episode 21;
+# lowered so that both episodes of [rl-train] update
+RL_MIN_BUFFER = 250
+RL_EPISODES = 2
+# run_ppo's 1000 steps at its dt of 0.05, cut to 500 (t_max 25)
+PPO_T_MAX = 25.0
+GRADREFINE_ITERS, GRADREFINE_SOLVES = 5, 10
+RL_CPU_STEPS = 20
 
 # published peaks of one H100 SXM at 700 W: fp32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -910,60 +955,77 @@ def check_wide_mesh(torch, rows: dict) -> None:
 
 def check_gather_large(torch, rows: dict) -> None:
     """Phase 3, seventh part: kernel 3 at the env step's large shapes (one
-    (M,) field, M=256; N=100000, the twin and config-4 environment, and
-    N=1M, the million-particle environment): against the plain version
-    (atol 1e-5) on positions in [-L, 2L); bitwise equal to the same
-    positions read one particle per thread (a copy at a 4-byte offset, which
-    the kernel reads scalar, as the one-thread-per-particle kernel did);
-    timed in turns with grid_sample, wrapped and on the device."""
+    (M,) field, M=256): N=100000, the twin and config-4 environment, and
+    N=1M, the million-particle environment (:func:`check_gather`)."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(19)
+    m = CFG4_SIM["n_mesh"]
+    for name, n in (("gather_cic_100k", CFG4_SIM["n_particles"]),
+                    ("gather_cic_million", MILLION_SIM["n_particles"])):
+        check_gather(torch, rows, name, n, m, gen)
+
+
+def check_damping_kernels(torch, rows: dict) -> None:
+    """Phase 3, eighth part: kernels 2 and 3 at the ``[damping]`` row's
+    environment (N=10000, M=128; :func:`check_deposit`,
+    :func:`check_gather`)."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(23)
+    n, m = DAMPING_SIM["n_particles"], DAMPING_SIM["n_mesh"]
+    check_deposit(torch, rows, "deposit_cic_damping", n, m, SIM["length"], gen)
+    check_gather(torch, rows, "gather_cic_damping", n, m, gen)
+
+
+def check_gather(torch, rows: dict, name: str, n: int, m: int, gen) -> None:
+    """Kernel 3 at one of its paths' shapes (one (M,) field, N positions):
+    against the plain version (atol 1e-5) on positions in [-L, 2L); bitwise
+    equal to the same positions read one particle per thread (a copy at a
+    4-byte offset, which the kernel reads scalar, as the
+    one-thread-per-particle kernel did); timed in turns with grid_sample,
+    wrapped and on the device."""
     import torch.nn.functional as F
 
     from plasma_control_tpu_torch.ops.kernels import cic
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(19)
-    m, length = CFG4_SIM["n_mesh"], SIM["length"]
-    for name, n in (("gather_cic_100k", CFG4_SIM["n_particles"]),
-                    ("gather_cic_million", MILLION_SIM["n_particles"])):
-        e = torch.randn(m, generator=gen, device=dev)
-        xu = torch.rand((1, n), generator=gen, device=dev) * (3 * length) - length
-        err = 0.0
-        for kind in KINDS:
-            got = cic.gather_cic(e, xu, m, length, kind)
-            ref = cic.gather_cic_plain(e, xu, m, length, kind)
-            shifted = torch.empty(n + 1, device=dev)[1:]
-            shifted.copy_(xu[0])
-            scalar = cic.gather_cic(e, shifted, m, length, kind)
-            torch.cuda.synchronize()
-            require(torch.allclose(got, ref, rtol=0.0, atol=1e-5), f"{name} {kind} vs plain")
-            require(torch.equal(got[0], scalar), f"{name} {kind}: vector and scalar reads differ")
-            err = max(err, float((got - ref).abs().max()))
-        # timed on positions in [0, L), where grid_sample computes the same
-        # function (see check_kernels)
-        x = torch.rand((1, n), generator=gen, device=dev) * length
-        e_pad = torch.cat([e, e[:1]])[None, None, None, :]
-        coords = torch.stack([2.0 * x / length - 1.0, torch.zeros_like(x)], dim=-1)[:, None]
-        call = lambda: cic.gather_cic(e, x, m, length)  # noqa: E731
-        lib = lambda: F.grid_sample(e_pad, coords, mode="bilinear", align_corners=True)  # noqa: E731
-        lib_err = float((lib()[:, 0, 0] - call()).abs().max())
-        require(lib_err <= 1e-4, f"{name}: grid_sample vs the cic gather: max |err| {lib_err}")
-        kern, libr = [], []
-        for _ in range(2):
-            kern.append(time_ms(torch, call))
-            libr.append(time_ms(torch, lib))
-        dev_ms, ops = device_ms(torch, call, "gather_kernel")
-        require(ops == 1, f"{name}: {ops:.3g} device ops per call")
-        lib_dev, _ = device_ms(torch, lib, None)
-        rows[name].update(max_abs_err=err, ms=min(kern), library_ms=min(libr), device_ms=dev_ms,
-                          plain_ms=time_ms(torch, lambda: cic.gather_cic_plain(e, x, m, length),
-                                           reps=10),
-                          **bound(GATHER_OPS * n, 4 * (m + 2 * n)))
-        b = rows[name]
-        log(f"[gather] {name}: N={n}, M={m}, 3 kinds: max |err| {err:.3g} against plain (atol "
-            f"1e-5), bitwise equal to the scalar reading; in turns: kernel {kern} ms, grid_sample "
-            f"{libr} ms per call; device {dev_ms:.5f} ms (grid_sample {lib_dev:.5f} ms); bound "
-            f"{b['bound_ms']:.6f} ms ({b['bound_by']}) = {100 * b['bound_ms'] / dev_ms:.2f} % on "
-            f"the device; plain {b['plain_ms']:.4f} ms")
+    length = SIM["length"]
+    e = torch.randn(m, generator=gen, device=dev)
+    xu = torch.rand((1, n), generator=gen, device=dev) * (3 * length) - length
+    err = 0.0
+    for kind in KINDS:
+        got = cic.gather_cic(e, xu, m, length, kind)
+        ref = cic.gather_cic_plain(e, xu, m, length, kind)
+        shifted = torch.empty(n + 1, device=dev)[1:]
+        shifted.copy_(xu[0])
+        scalar = cic.gather_cic(e, shifted, m, length, kind)
+        torch.cuda.synchronize()
+        require(torch.allclose(got, ref, rtol=0.0, atol=1e-5), f"{name} {kind} vs plain")
+        require(torch.equal(got[0], scalar), f"{name} {kind}: vector and scalar reads differ")
+        err = max(err, float((got - ref).abs().max()))
+    # timed on positions in [0, L), where grid_sample computes the same
+    # function (see check_kernels)
+    x = torch.rand((1, n), generator=gen, device=dev) * length
+    e_pad = torch.cat([e, e[:1]])[None, None, None, :]
+    coords = torch.stack([2.0 * x / length - 1.0, torch.zeros_like(x)], dim=-1)[:, None]
+    call = lambda: cic.gather_cic(e, x, m, length)  # noqa: E731
+    lib = lambda: F.grid_sample(e_pad, coords, mode="bilinear", align_corners=True)  # noqa: E731
+    lib_err = float((lib()[:, 0, 0] - call()).abs().max())
+    require(lib_err <= 1e-4, f"{name}: grid_sample vs the cic gather: max |err| {lib_err}")
+    kern, libr = [], []
+    for _ in range(2):
+        kern.append(time_ms(torch, call))
+        libr.append(time_ms(torch, lib))
+    dev_ms, ops = device_ms(torch, call, "gather_kernel")
+    require(ops == 1, f"{name}: {ops:.3g} device ops per call")
+    lib_dev, _ = device_ms(torch, lib, None)
+    rows[name].update(max_abs_err=err, ms=min(kern), library_ms=min(libr), device_ms=dev_ms,
+                      plain_ms=time_ms(torch, lambda: cic.gather_cic_plain(e, x, m, length),
+                                       reps=10),
+                      **bound(GATHER_OPS * n, 4 * (m + 2 * n)))
+    b = rows[name]
+    log(f"[gather] {name}: N={n}, M={m}, 3 kinds: max |err| {err:.3g} against plain (atol "
+        f"1e-5), bitwise equal to the scalar reading; in turns: kernel {kern} ms, grid_sample "
+        f"{libr} ms per call; device {dev_ms:.5f} ms (grid_sample {lib_dev:.5f} ms); bound "
+        f"{b['bound_ms']:.6f} ms ({b['bound_by']}) = {100 * b['bound_ms'] / dev_ms:.2f} % on "
+        f"the device; plain {b['plain_ms']:.4f} ms")
 
 
 def run_slice(torch, rows: dict) -> None:
@@ -1729,7 +1791,7 @@ def run_feedback(torch) -> None:
         f"{float(ie.sum()):.6g}, mean per step {float(ie.mean()):.6g}")
 
 
-def run_damping(torch) -> None:
+def run_damping(torch, rows: dict) -> None:
     """Phase 4k: bench_scaling.py's "2-controller-damping" row through the
     port at its full shapes (DAMPING_*: bump-on-tail, N=10000, M=128, 300
     steps, max_mode 3; MPC K=384, H=6, Km=8, w_terminal 4; CIC kernels):
@@ -1752,6 +1814,7 @@ def run_damping(torch) -> None:
     steps = cfg.n_steps
     fns = _kernel_fns()
     runs, walls = {}, {}
+    rows["deposit_cic_damping"]["launches"] = rows["gather_cic_damping"]["launches"] = 0
     for name in ("uncontrolled", "feedback", "mpc"):
         _reset(fns)
         torch.cuda.synchronize()
@@ -1772,6 +1835,8 @@ def run_damping(torch) -> None:
         got = (launches["deposit_cic"], launches["gather_cic"], launches["spectral_horizon"])
         require(all(w is None or w == g for w, g in zip(want, got)),
                 f"[damping] {name}: launches (deposit, gather, spectral_horizon) {got}, want {want}")
+        rows["deposit_cic_damping"]["launches"] += got[0]
+        rows["gather_cic_damping"]["launches"] += got[1]
         log(f"[damping] {name}: {steps} steps, {1e3 * walls[name] / steps:.4f} ms per step; "
             f"launches {launches}")
         runs[name] = pe.cpu().numpy()
@@ -2067,6 +2132,423 @@ def check_loops_repeat(torch) -> None:
         f"{'in every output' if all(same.values()) else same}")
 
 
+def _actor_path(simcase: str) -> str:
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return os.path.join(root, "artifacts", f"dagger_actor_{simcase.replace('-', '_')}.msgpack")
+
+
+def _load_actor(torch, simcase: str, device):
+    """The committed DAgger actor of ``simcase``, read by the port's msgpack
+    reader into a SpectralActor (34 features -> 3 x 64 -> 6, outputs +-1)."""
+    from plasma_control_tpu_torch.control.rl.networks import SpectralActor
+    from plasma_control_tpu_torch.io.checkpoint import load_params
+
+    fresh = SpectralActor(64, 2 * LEARNED_MAX_MODE,
+                          generator=torch.Generator(device=device).manual_seed(0))
+    return load_params(_actor_path(simcase), like=fresh)
+
+
+def run_learned(torch) -> None:
+    """Phase 4o: the three committed DAgger actors closed-loop at
+    tests/test_rl.py's TestLearnedSuppression configurations (two-stream and
+    bump-on-tail: N=5000, M=250, 500 steps, max_mode 3; landau: N=2000,
+    M=32, 150 steps), the env step on kernels 2-3, one synchronised step per
+    call (the actor reads the state only, so the calls chain into one run):
+    four launches of kernel 2 (three in the Yoshida-4 step, one for the
+    energies) and three of kernel 3 per step. Hard gates, the JAX test's:
+    two-stream tail PE (mean of the last fifth) < 250 and < 0.25 x the
+    uncontrolled tail; bump-on-tail < 18; landau < 25. Reports ms per step
+    and the actor's forward time."""
+    from plasma_control_tpu_torch.control.evaluate import policy_rollout
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.models.rollout import rollout
+
+    dev = torch.device("cuda")
+    fns = _kernel_fns()
+    for simcase, sim, tail_abs, tail_frac in LEARNED:
+        cfg, ctrl, _, grid, act = _setup(torch, dev, sim=dict(sim, deposit_method="pallas"),
+                                         max_mode=LEARNED_MAX_MODE)
+        actor = _load_actor(torch, simcase, dev)
+        policy = lambda s, actor=actor: actor.sample(s[None])[0]  # noqa: E731
+        state = init_state(cfg, torch.Generator(device=dev).manual_seed(cfg.seed), device=dev)
+        steps = cfg.n_steps
+        with torch.no_grad():
+            policy_rollout(state, grid, cfg, act, policy, record_snapshots=False, n_steps=3)
+            _reset(fns)
+            st, pes, times = state, [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = policy_rollout(st, grid, cfg, act, policy, record_snapshots=False, n_steps=1)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                st = out.final_state
+                pes.append(out.field_energy)
+            launches = _counts(fns)
+            s0 = torch.cat([state.x, state.v])[None]
+            fwd_ms = time_ms(torch, lambda: actor.sample(s0))
+        pe = torch.cat(pes)
+        tail = float(pe[-(steps // 5):].mean())
+        require(bool(torch.isfinite(pe).all()) and pe.shape == (steps,), f"[learned] {simcase} PE")
+        require(launches["deposit_cic"] == 4 * steps and launches["gather_cic"] == 3 * steps
+                and sum(launches.values()) == 7 * steps,
+                f"[learned] {simcase}: launches {launches}, want 4 deposits and 3 gathers per step")
+        msg = f"tail PE {tail:.6g} (< {tail_abs:g})"
+        ok = tail < tail_abs
+        if tail_frac is not None:
+            base = rollout(state, grid, cfg).field_energy[1:]
+            tail_u = float(base[-(steps // 5):].mean())
+            msg += f", uncontrolled {tail_u:.6g} (controlled < {tail_frac:g} x that)"
+            ok = ok and tail < tail_frac * tail_u
+        log(f"[learned] {simcase}: committed actor, {steps} steps at N={cfg.n_particles}, "
+            f"M={cfg.n_mesh}; launches {launches}; {msg}; ms per synchronised step: median "
+            f"{statistics.median(times):.4f}, min {min(times):.4f}, max {max(times):.4f}; actor "
+            f"forward {fwd_ms:.4f} ms (N={cfg.n_particles}, CUDA events, median of 30)")
+        require(ok, f"[learned] {simcase}: {msg}")
+
+
+def run_dagger(torch, rows: dict) -> None:
+    """Phase 4p: ``dagger_train`` with the MPC expert at run_dagger.py's CLI
+    defaults (two-stream, N=5000, M=250, 500 steps, max_mode 3; K=512, H=10,
+    Km=16 knot-3 antithetic MPPI; spectral actor, 8 modes, v_order 1), the
+    depth cut to DAGGER_ITERS iterations of DAGGER_EPOCHS epochs, the env
+    step on kernels 2-3: one launch of kernel 1 per expert solve (500 for
+    the expert's own rollout, 500 per iteration's relabelling). Then kernel
+    1 at this path's shapes against its plain version (the kernel row), and
+    the time of one solve and of one BC epoch on the final data set's
+    shape."""
+    import dataclasses
+
+    from plasma_control_tpu_torch.cli import (add_control_args, add_mpc_args, base_parser,
+                                              build_control_config, build_mpc_config,
+                                              build_sim_config)
+    from plasma_control_tpu_torch.control.mpc import _pad_modes, draw_noise, plan
+    from plasma_control_tpu_torch.control.rl.dagger import dagger_train, fit_bc
+    from plasma_control_tpu_torch.control.rl.ddpg import DDPGConfig, make_ddpg
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+    dev = torch.device("cuda")
+    args = vars(add_mpc_args(add_control_args(base_parser("dagger"))).parse_args([]))
+    cfg = dataclasses.replace(build_sim_config(args), deposit_method="pallas")
+    ctrl, mpc = build_control_config(args), build_mpc_config(args)
+    hp = DDPGConfig(encoder="spectral", encoder_modes=8, encoder_v_order=1, mlp_dim=64,
+                    output_min=ctrl.coeff_min, output_max=ctrl.coeff_max)
+    _, _, _, grid, act = _setup(torch, dev, sim=dataclasses.asdict(cfg), max_mode=ctrl.max_mode)
+    steps = cfg.n_steps
+    fns = _kernel_fns()
+    _reset(fns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    actor, params, hist = dagger_train(cfg, ctrl, hp, grid, act,
+                                       torch.Generator(device=dev).manual_seed(cfg.seed + 7),
+                                       n_iters=DAGGER_ITERS, epochs_per_iter=DAGGER_EPOCHS,
+                                       verbose=False, mpc=mpc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(fns)
+    solves = steps * (1 + DAGGER_ITERS)
+    rows["spectral_horizon_dagger"]["launches"] = launches["spectral_horizon"]
+    log(f"[dagger] dagger_train, MPC expert, {DAGGER_ITERS} iterations x {DAGGER_EPOCHS} epochs "
+        f"at N={cfg.n_particles}, M={cfg.n_mesh}, K={mpc.n_candidates}, H={mpc.horizon}, "
+        f"Km={mpc.plan_modes}: {wall:.3f} s wall; launches {launches}; bc_loss "
+        f"{hist['bc_loss']}, policy tail PE {hist['pe_tail']}")
+    require(launches["spectral_horizon"] == solves, f"[dagger] one kernel 1 launch per expert "
+            f"solve: {launches['spectral_horizon']}, want {solves}")
+    # the expert's loop (a solve's feedback seed, the step, the energies), its
+    # replay, and each iteration's relabelled rollout
+    want_dep = 5 * steps + (4 * steps + 1) + DAGGER_ITERS * 5 * steps
+    want_gat = 3 * steps * (2 + DAGGER_ITERS)
+    require(launches["deposit_cic"] == want_dep and launches["gather_cic"] == want_gat,
+            f"[dagger] deposits {launches['deposit_cic']} (want {want_dep}), gathers "
+            f"{launches['gather_cic']} (want {want_gat})")
+    require(all(math.isfinite(v) for v in hist["bc_loss"] + hist["pe_tail"]) and "params" in params,
+            "[dagger] finite losses and tail PE, a params tree")
+
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(3), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    mean = torch.zeros((mpc.horizon, ctrl.n_actions), device=dev)
+    sigma = torch.tensor(mpc.sigma0, device=dev)
+    solve_ms = time_ms(torch, lambda: plan(state, mean, sigma, gen, grid, cfg, ctrl, mpc, act))
+    fresh = make_ddpg(cfg, ctrl, hp, torch.Generator(device=dev).manual_seed(5))
+    data = solves  # the final data set: the expert's rollout plus one per iteration
+    states = torch.cat([torch.rand((data, cfg.n_particles), generator=gen, device=dev) * cfg.length,
+                        torch.randn((data, cfg.n_particles), generator=gen, device=dev)], dim=1)
+    targets = torch.rand((data, ctrl.n_actions), generator=gen, device=dev) * 2.0 - 1.0
+    epoch_ms = time_ms(torch, lambda: fit_bc(fresh.actor, fresh.actor_opt, states, targets, 1),
+                       reps=10)
+    log(f"[dagger] one expert solve {solve_ms:.4f} ms (CUDA events, median of 30); one BC epoch "
+        f"on {data} x {2 * cfg.n_particles} states {epoch_ms:.4f} ms (median of 10)")
+
+    # kernel 1 at the path's shapes: one solve's clipped knot-noise
+    # candidates, padded to Km as candidate_costs pads them
+    ka, km = ctrl.max_mode, max(int(mpc.plan_modes), ctrl.max_mode)
+    cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, mpc.horizon, 2 * ka, device=dev),
+                       ctrl.coeff_min, ctrl.coeff_max)
+    u_c, u_s = _pad_modes(cand[..., :ka], km), _pad_modes(cand[..., ka:], km)
+    rot = sh.use_rot(cfg.clamped_dt(), cfg.length, mpc.spectral_drift)
+    kw = dict(length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, n_particles=cfg.n_particles,
+              rot=rot, n_modes=km)
+    call = lambda: sh.spectral_horizon(state.x, state.v, u_c, u_s, **kw)  # noqa: E731
+    got, ref = call(), sh.spectral_horizon_plain(state.x, state.v, u_c, u_s, **kw)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()) and torch.allclose(got, ref, rtol=2e-4, atol=1e-6),
+            "[dagger] spectral_horizon vs plain")
+    dev_ms, ops = device_ms(torch, call, "spectral_horizon_kernel")
+    require(ops == 1, f"[dagger] spectral_horizon: {ops:.3g} device ops per call")
+    k, h = u_c.shape[:2]
+    rows["spectral_horizon_dagger"].update(
+        max_abs_err=float((got - ref).abs().max()), device_ms=dev_ms, ms=time_ms(torch, call),
+        plain_ms=time_ms(torch, lambda: sh.spectral_horizon_plain(state.x, state.v, u_c, u_s, **kw),
+                         reps=10),
+        library_ms=None,
+        **bound(spectral_ops(k, h, cfg.n_particles, km, rot),
+                spectral_bytes(k, h, cfg.n_particles, km, twin=False)))
+    r = rows["spectral_horizon_dagger"]
+    log(f"[dagger] spectral_horizon at the expert's shapes (K={k}, H={h}, Km={km}, "
+        f"N={cfg.n_particles}, {'rot' if rot else 'trig'}, {sh.launch_geometry(cfg.n_particles, rot)}"
+        f"): max |err| {r['max_abs_err']:.3g} (rtol 2e-4); kernel {r['ms']:.4f} ms, device "
+        f"{dev_ms:.5f} ms, plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.6f} ms "
+        f"({r['bound_by']}, {r['ops']:.4g} operations)")
+
+
+def _synchronised_timer(torch, module, name: str, times: list):
+    """Replace ``module.name`` with a wrapper that records each call's
+    milliseconds (the card synchronised before and after); returns the
+    original, to put back."""
+    orig = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, timed)
+    return orig
+
+
+def run_rl_train(torch) -> None:
+    """Phase 4q: RL_EPISODES episodes of each trainer's ``train`` at its run
+    script's defaults, the env step on kernels 2-3: DDPG (N=5000, M=250, 500
+    steps, max_mode 3 at +-1.25, the real replay capacity of 100000
+    transitions, min_buffer_size cut to RL_MIN_BUFFER, offline BC on a
+    feedback rollout first), PPO (N=5000, M=250, dt 0.05, t_max cut to
+    PPO_T_MAX: 500 steps; the anti-BC warm start first) and SAC (N=10000,
+    M=500, 500 steps, max_mode 5). Asserts finite histories, an update in
+    every episode and the kernel 2-3 launches of every env step; reports ms
+    per env step (updates excluded), per update, and the replay buffer's
+    bytes beside the peak of ``torch.cuda.max_memory_allocated``."""
+    import numpy as np
+
+    from plasma_control_tpu_torch.config import ControlConfig, SimConfig
+    from plasma_control_tpu_torch.control.actuator import make_actuator
+    from plasma_control_tpu_torch.control.rl import ddpg, ppo, sac
+    from plasma_control_tpu_torch.ops.grid import make_grid
+
+    dev = torch.device("cuda")
+    env = dict(simcase="two-stream", dt=0.1, t_max=50.0, deposit_method="pallas")
+    cases = (
+        ("ddpg", ddpg, SimConfig(**env), dict(max_mode=3, coeff_min=-1.25, coeff_max=1.25),
+         ddpg.DDPGConfig(output_min=-1.25, output_max=1.25, min_buffer_size=RL_MIN_BUFFER)),
+        ("ppo", ppo, SimConfig(**dict(env, dt=0.05, t_max=PPO_T_MAX)), dict(max_mode=3),
+         ppo.PPOConfig()),
+        ("sac", sac, SimConfig(**dict(env, n_particles=10000, n_mesh=500)), dict(max_mode=5),
+         sac.SACConfig()),
+    )
+    fns = _kernel_fns()
+    for name, mod, cfg, ctrl_kw, hp in cases:
+        ctrl = ControlConfig(reward_n_mesh=cfg.n_mesh, **ctrl_kw)
+        grid = make_grid(cfg.n_mesh, cfg.length, device=dev)
+        act = make_actuator(cfg.length, cfg.n_mesh, ctrl.max_mode, device=dev)
+        episodes, updates = [], []
+        saved = (_synchronised_timer(torch, mod, "run_episode", episodes),
+                 _synchronised_timer(torch, mod, "update_policy", updates))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(fns)
+        t0 = time.perf_counter()
+        try:
+            _, best, hist = mod.train(cfg, ctrl, hp, grid, act,
+                                      torch.Generator(device=dev).manual_seed(cfg.seed),
+                                      num_episodes=RL_EPISODES, verbose=0)
+        finally:
+            mod.run_episode, mod.update_policy = saved
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(fns)
+        peak = torch.cuda.max_memory_allocated()
+        steps = cfg.n_steps
+        # the offline stage's feedback rollout: 5 deposits and 3 gathers a
+        # step; each episode step: the Yoshida-4 step, plus DDPG's expert
+        # action (one deposit); the reward's field energy is a dense deposit
+        offline = name in ("ddpg", "ppo")
+        per_step = 4 if name == "ddpg" else 3
+        want_dep = (5 * steps if offline else 0) + RL_EPISODES * per_step * steps
+        want_gat = (3 * steps if offline else 0) + RL_EPISODES * 3 * steps
+        losses = {k: v for k, v in hist.items() if k != "reward"}
+        log(f"[rl-train] {name}: {RL_EPISODES} episodes of {steps} steps at N={cfg.n_particles}, "
+            f"M={cfg.n_mesh}, max_mode {ctrl.max_mode}: {wall:.3f} s wall; {len(updates)} "
+            f"updates; launches {launches}; history "
+            f"{ {k: [float(x) for x in v] for k, v in hist.items()} }")
+        require(all(np.isfinite(v).all() for v in hist.values()) and "params" in best,
+                f"[rl-train] {name}: finite history")
+        require(all((v != 0).all() for v in losses.values()),
+                f"[rl-train] {name}: an update in every episode (a loss of 0 is none)")
+        require(len(episodes) == RL_EPISODES and launches["deposit_cic"] == want_dep
+                and launches["gather_cic"] == want_gat and launches["spectral_horizon"] == 0,
+                f"[rl-train] {name}: launches {launches}, want {want_dep} deposits, {want_gat} "
+                f"gathers")
+        env_ms = (sum(episodes) - sum(updates)) / (RL_EPISODES * steps)
+        buf = 0
+        if name != "ppo":
+            s_dim, a_dim = 2 * cfg.n_particles, ctrl.n_actions
+            buf = 4 * hp.capacity * (2 * s_dim + 2 * a_dim + 2)
+        log(f"[rl-train] {name}: ms per env step (updates excluded, synchronised per episode) "
+            f"{env_ms:.4f}; per update (synchronised): median {statistics.median(updates):.4f}, "
+            f"min {min(updates):.4f}, max {max(updates):.4f}; episodes "
+            f"{[round(e, 3) for e in episodes]} ms; replay buffer {buf} bytes, peak "
+            f"torch.cuda.max_memory_allocated {peak} bytes")
+
+
+def run_gradrefine(torch) -> None:
+    """Phase 4r: ``plan`` with ``n_grad_iters`` = GRADREFINE_ITERS at the
+    spectral slice's environment and planner (N=5000, M=250, K=384, H=6,
+    Km=8) with the dense deposit that autograd differentiates: one launch
+    of kernel 1 per solve and no CIC kernel; ms per solve. Then the
+    refinement alone on the card and on the CPU from one state and the
+    card's sampled nominal: the refined nominals within 1e-4."""
+    import dataclasses
+
+    from plasma_control_tpu_torch.control.mpc import _gradient_refine, plan
+    from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
+
+    dev = torch.device("cuda")
+    sim = dict(SIM, deposit_method="dense")
+    mpc_kw = dict(MPC, n_grad_iters=GRADREFINE_ITERS)
+    cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=sim, mpc=mpc_kw)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mean = torch.zeros((mpc.horizon, ctrl.n_actions), device=dev)
+    sigma = torch.tensor(mpc.sigma0, device=dev)
+    plan(state, mean, sigma, gen, grid, cfg, ctrl, mpc, act)  # warm-up
+    fns = _kernel_fns()
+    _reset(fns)
+    times = []
+    for _ in range(GRADREFINE_SOLVES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        action, new_mean, _ = plan(state, mean, sigma, gen, grid, cfg, ctrl, mpc, act)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        mean = torch.cat([new_mean[1:], new_mean[-1:]])
+    launches = _counts(fns)
+    require(launches["spectral_horizon"] == GRADREFINE_SOLVES and sum(launches.values())
+            == GRADREFINE_SOLVES, f"[gradrefine] launches {launches}: one kernel 1 per solve")
+    require(bool(torch.isfinite(new_mean).all()), "[gradrefine] refined nominal not finite")
+    sampled = plan(state, mean, sigma, gen, grid, cfg, ctrl,
+                   dataclasses.replace(mpc, n_grad_iters=0), act)[1]
+    out = {}
+    for device in ("cuda", "cpu"):
+        c, k, m_, g, a = _setup(torch, device, sim=sim, mpc=mpc_kw)
+        st = PlasmaState(state.x.to(device), state.v.to(device))
+        t0 = time.perf_counter()
+        out[device] = _gradient_refine(st, sampled.to(device), g, c, k, m_, a).cpu()
+        out[device + "_s"] = time.perf_counter() - t0
+    diff = float((out["cuda"] - out["cpu"]).abs().max())
+    moved = float((out["cuda"] - sampled.cpu()).abs().max())
+    log(f"[gradrefine] plan with {GRADREFINE_ITERS} Adam steps through H={mpc.horizon} Yoshida-4 "
+        f"steps (dense deposit, N={cfg.n_particles}, M={cfg.n_mesh}), K={mpc.n_candidates}: "
+        f"launches {launches}; ms per solve (synchronised): median "
+        f"{statistics.median(times):.4f}, min {min(times):.4f}, max {max(times):.4f}; refinement "
+        f"alone, card vs CPU from one nominal: max |diff| {diff:.3g} (atol 1e-4), moved the "
+        f"nominal by up to {moved:.4g}; {out['cuda_s']:.3f} s card, {out['cpu_s']:.3f} s CPU")
+    require(diff <= 1e-4, f"[gradrefine] refined nominal: card vs CPU max |diff| {diff}")
+
+
+def run_entry_rl(torch) -> None:
+    """Phase 4s: ``main()`` of the port's run_dagger (the committed
+    two-stream actor, and ``--optimize`` cut to 1 iteration of 10 epochs),
+    run_ddpg, run_ppo and run_sac (``--optimize``, 1 episode; DDPG's
+    min_buffer_size at RL_MIN_BUFFER) at their CLI defaults otherwise, with
+    ``--is_save`` into a git-ignored directory, removed afterwards: each
+    writes a data.npz with finite PE and the trainers their weights."""
+    import importlib
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from plasma_control_tpu_torch.io.export import load_run
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dataset")
+    os.makedirs(data, exist_ok=True)
+    runs = (("dagger", "run_dagger", ["--actor_path", _actor_path("two-stream")]),
+            ("dagger-optimize", "run_dagger", ["--optimize", "--dagger_iters", "1",
+                                               "--epochs_per_iter", "10"]),
+            ("ddpg", "run_ddpg", ["--optimize", "--num_episode", "1", "--min_buffer_size",
+                                  str(RL_MIN_BUFFER)]),
+            ("ppo", "run_ppo", ["--optimize", "--num_episode", "1"]),
+            ("sac", "run_sac", ["--optimize", "--num_episode", "1"]))
+    fns = _kernel_fns()
+    for phase, module, flags in runs:
+        script = importlib.import_module(f"plasma_control_tpu_torch.{module}")
+        tag = module[len("run_"):] + "-control"
+        with tempfile.TemporaryDirectory(dir=data) as tmp:
+            argv = flags + ["--is_save", "--save_file", f"{tmp}/data", "--save_plot", f"{tmp}/plots"]
+            if phase == "dagger-optimize":
+                argv += ["--actor_path", f"{tmp}/actor.msgpack"]
+            _reset(fns)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            script.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run = load_run(f"{tmp}/data/two-stream/{tag}/data.npz")
+            weights = sorted(f for _, _, fs in os.walk(tmp) for f in fs if f.endswith(".msgpack"))
+        steps = run["snapshot"].shape[1] - 1
+        require(bool(np.isfinite(run["PE"]).all()) and steps == run["coeff_cos"].shape[1],
+                f"[entry-{phase}] data.npz: PE finite, {steps} steps")
+        require(phase == "dagger" or weights, f"[entry-{phase}] no weights written")
+        log(f"[entry-{phase}] python -m plasma_control_tpu_torch.{module} {' '.join(flags[:1])} "
+            f"(CLI defaults otherwise, --is_save): {wall:.3f} s wall, {steps} evaluation steps at "
+            f"N={run['snapshot'].shape[0] // 2}; tail PE (mean of the last fifth) "
+            f"{float(np.mean(run['PE'][-(steps // 5):])):.6g}; weights {weights}; launches "
+            f"{_counts(fns)}")
+
+
+def check_rl_against_cpu(torch) -> None:
+    """Phase 5, fifth part: RL_CPU_STEPS closed-loop steps of the committed
+    two-stream actor at TestLearnedSuppression's configuration from one
+    seeded state, on the card (kernels 2-3) against the CPU (their plain
+    versions): PE within 1e-5 relative."""
+    from plasma_control_tpu_torch.control.evaluate import policy_rollout
+    from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
+
+    sim = dict(LEARNED[0][1], deposit_method="pallas")
+    cfg = _setup(torch, "cpu", sim=sim, max_mode=LEARNED_MAX_MODE)[0]
+    start = init_state(cfg, torch.Generator().manual_seed(cfg.seed), device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg, ctrl, _, grid, act = _setup(torch, device, sim=sim, max_mode=LEARNED_MAX_MODE)
+        actor = _load_actor(torch, "two-stream", device)
+        st = PlasmaState(start.x.to(device), start.v.to(device))
+        with torch.no_grad():
+            r = policy_rollout(st, grid, cfg, act, lambda s, a=actor: a.sample(s[None])[0],
+                               record_snapshots=False, n_steps=RL_CPU_STEPS)
+        out[device] = (r.field_energy.cpu(), r.coeffs.cpu())
+    (pe, a), (pe0, a0) = out["cuda"], out["cpu"]
+    rel = float(((pe - pe0).abs() / pe0.abs()).max())
+    log(f"[rl-cpu] committed two-stream actor, {RL_CPU_STEPS} steps at N={cfg.n_particles}, "
+        f"M={cfg.n_mesh}: card vs CPU plain PE max rel {rel:.3g} (rtol 1e-5); actions max |diff| "
+        f"{float((a - a0).abs().max()):.3g}")
+    require(rel <= 1e-5, f"[rl-cpu] PE card vs CPU: max rel {rel}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2107,6 +2589,13 @@ def main() -> int:
                                 replaces="plasma_control_tpu/ops/pallas/cic_pallas.py:122"),
         "gather_cic_million": dict(source="plasma_control_tpu_torch/csrc/cic.cu",
                                    replaces="plasma_control_tpu/ops/pallas/cic_pallas.py:122"),
+        "deposit_cic_damping": dict(source="plasma_control_tpu_torch/csrc/cic.cu",
+                                    replaces="plasma_control_tpu/ops/pallas/cic_pallas.py:91"),
+        "gather_cic_damping": dict(source="plasma_control_tpu_torch/csrc/cic.cu",
+                                   replaces="plasma_control_tpu/ops/pallas/cic_pallas.py:122"),
+        "spectral_horizon_dagger": dict(
+            source="plasma_control_tpu_torch/csrc/spectral_horizon.cu",
+            replaces="plasma_control_tpu/ops/pallas/spectral_horizon.py:303"),
     }
     check_kernels(torch, rows)
     check_grid_kernels(torch, rows)
@@ -2115,6 +2604,7 @@ def main() -> int:
     check_wide_modes(torch)
     check_wide_mesh(torch, rows)
     check_gather_large(torch, rows)
+    check_damping_kernels(torch, rows)
     run_slice(torch, rows)
     end_state = run_grid_slice(torch, rows)
     run_leapfrog_loop(torch, rows)
@@ -2125,14 +2615,20 @@ def main() -> int:
     run_million(torch, rows)
     run_twin_km32(torch, rows)
     run_feedback(torch)
-    run_damping(torch)
+    run_damping(torch, rows)
     run_batch(torch)
     run_golden(torch)
     run_entry_scripts(torch)
+    run_learned(torch)
+    run_dagger(torch, rows)
+    run_rl_train(torch)
+    run_gradrefine(torch)
+    run_entry_rl(torch)
     check_against_cpu(torch)
     check_grid_against_cpu(torch, end_state)
     check_twin_against_cpu(torch)
     check_new_loops_against_cpu(torch)
+    check_rl_against_cpu(torch)
     check_loops_repeat(torch)
     log(f"[total] {time.perf_counter() - t_start:.1f} s wall, build included")
 

@@ -1,7 +1,8 @@
 """Command-line machinery of the port's run scripts.
 
 The counterpart of :mod:`plasma_control_tpu.cli` for the port's entry points
-(``run_wo_oc``, ``run_feedback``, ``run_mpc``, ``run_lqr``): the same flags,
+(``run_wo_oc``, ``run_feedback``, ``run_mpc``, ``run_lqr``, and through
+:mod:`.cli_rl` ``run_ddpg``, ``run_ppo``, ``run_sac``): the same flags,
 defaults and choices (``base_parser``, ``add_control_args``,
 ``add_mpc_args``, and the resume flags the JAX scripts declare), the same
 functions that build the configs, the cost traces and the data dump of
@@ -243,16 +244,21 @@ def run_and_save(
     coeff_sin=None,
     costs=None,
     high_idx=None,
+    history=None,
 ):
     """Dump one run's data (``data.mat`` and ``data.npz`` under
-    ``<save_file>/<simcase>/<tag>/``) when ``--is_save`` is set. The plot set
-    that the JAX package draws into ``<save_plot>`` (``high_idx`` marks the
-    beam there) waits for the port's viz slice."""
+    ``<save_file>/<simcase>/<tag>/``) when ``--is_save`` is set; a trainer's
+    per-episode loss and reward ``history`` goes in as the ``history``
+    group (the JAX package plots it instead). The plot set that the JAX
+    package draws into ``<save_plot>`` (``high_idx`` marks the beam there)
+    waits for the port's viz slice."""
     from .io.export import build_run_dict, save_mat, save_npz
 
     filepath = os.path.join(args["save_file"], args["simcase"], tag)
     mdic = build_run_dict(cfg, np.asarray(snapshot), np.asarray(energy), np.asarray(field_energy),
                           coeff_cos, coeff_sin, costs)
+    if history is not None:
+        mdic["history"] = {k: np.asarray(v) for k, v in history.items()}
     if args.get("is_save"):
         save_mat(os.path.join(filepath, "data.mat"), mdic)
         save_npz(os.path.join(filepath, "data.npz"), mdic)

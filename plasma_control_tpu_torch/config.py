@@ -90,11 +90,9 @@ class MPCConfig:
 
     The port runs the MPPI and CEM solves with the spectral and the grid plan
     model, at full or reduced fidelity with the fidelity guard and the
-    twin-corrected cost, chunked costs and knot, white or AR(1) noise.
-    ``control/mpc.py`` raises ``NotImplementedError`` for gradient refinement
-    (``n_grad_iters > 0``), the one setting it does not run yet; it needs
-    autograd through the ``dense``/``scatter`` deposit, not a backward CIC
-    kernel.
+    twin-corrected cost, chunked costs and knot, white or AR(1) noise, and
+    gradient refinement (``n_grad_iters > 0``, autograd through the
+    ``dense``/``scatter`` deposit; the CIC kernels have no backward pass).
     """
 
     horizon: int = 10  # planning horizon in env steps

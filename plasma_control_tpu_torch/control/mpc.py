@@ -38,12 +38,13 @@ JAX's ``vmap`` over candidates becomes a candidate batch dimension and its
 ``lax.scan`` over time a Python loop. Random draws come from a
 ``torch.Generator``; ``plan(noise=...)`` and ``mpc_rollout(step_noise=...)``
 take the unit-variance draws instead, which is how the tests hand both
-packages the same noise. Gradient refinement (``n_grad_iters > 0``) raises
-``NotImplementedError`` (:func:`_check_supported`): it is not ported yet. It
-needs no backward CIC kernel: the JAX package differentiates through the
-environment's ``dense`` or ``scatter`` deposit, and cannot differentiate its
-own Pallas CIC kernels either, so the port can use autograd through the same
-two methods.
+packages the same noise. With ``n_grad_iters > 0`` the solve's nominal is
+then refined by Adam on the horizon cost, with gradients through the PIC
+dynamics of the plan model (:func:`_gradient_refine`): autograd through the
+``dense`` or ``scatter`` deposit, each step recomputed in the backward pass
+(``torch.utils.checkpoint``). The JAX package cannot differentiate its
+Pallas CIC kernels, and the CIC kernels here have no backward pass either:
+``deposit_method="pallas"`` with refinement raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ControlConfig, MPCConfig, SimConfig
 from ..models.pic import PlasmaState, step
@@ -67,6 +69,7 @@ from ..ops.kernels.fused_step import fused_leapfrog_step, fused_packed_horizon
 from ..ops.kernels.spectral_horizon import spectral_horizon, use_rot
 from .actuator import FourierActuator, make_actuator
 from .feedback import feedback_coefficients
+from .rl.optim import Adam
 
 __all__ = ["MPCOutput", "candidate_costs", "knot_noise", "ar1_noise", "draw_noise", "plan",
            "plan_fidelity_check", "twin_targets", "mpc_rollout"]
@@ -81,14 +84,6 @@ class MPCOutput(NamedTuple):
     input_energy: torch.Tensor  # (T,)
     plan_cost: torch.Tensor  # (T,) best candidate cost at each solve
     final_mean: torch.Tensor  # (H, 2K) shifted nominal after the last solve
-
-
-def _check_supported(mpc: MPCConfig) -> None:
-    """Raise for the MPC settings this port does not run yet."""
-    if mpc.n_grad_iters > 0:
-        raise NotImplementedError(
-            "MPC with gradient refinement (n_grad_iters > 0) is not ported to PyTorch yet"
-        )
 
 
 def _reduced_model(grid: Grid, cfg: SimConfig, mpc: MPCConfig, dtype=torch.float32):
@@ -599,7 +594,6 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator, twin_target=Non
     size, one kernel launch each; the last chunk is padded with copies of
     candidate 0 whose costs are dropped, so every launch has the requested
     size."""
-    _check_supported(mpc)
     if mpc.plan_chunk is not None and coeff_seqs.shape[0] > mpc.plan_chunk:
         k_total, chunk = coeff_seqs.shape[0], int(mpc.plan_chunk)
         k_pad = -(-k_total // chunk) * chunk
@@ -662,22 +656,74 @@ def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, twin_t
         costs = costs_of(cand)
         best = torch.min(costs)
         w = torch.softmax(-(costs - best) / mpc.temperature, dim=0)
-        new_mean = torch.einsum("k,khd->hd", w, cand)
-        return new_mean[0], new_mean, best
-    # CEM: refit mean and spread to the n_elites cheapest, n_iters times
-    mu = mean
-    sd = torch.broadcast_to(torch.as_tensor(sigma, dtype=mean.dtype, device=mean.device), (h, d))
-    for eps in noise:
-        cand = torch.clamp(mu[None] + sd * eps, ctrl.coeff_min, ctrl.coeff_max)
-        cand[0] = mu
-        if fb_seq is not None:
-            cand[1] = torch.clamp(fb_seq, ctrl.coeff_min, ctrl.coeff_max)
-        costs = costs_of(cand)
-        elites = cand[torch.topk(-costs, mpc.n_elites).indices]
-        mu = elites.mean(dim=0)
-        sd = elites.std(dim=0, correction=0) + 1e-3
-        best = torch.min(costs)
+        mu = torch.einsum("k,khd->hd", w, cand)
+    else:  # CEM: refit mean and spread to the n_elites cheapest, n_iters times
+        mu = mean
+        sd = torch.broadcast_to(torch.as_tensor(sigma, dtype=mean.dtype, device=mean.device),
+                                (h, d))
+        for eps in noise:
+            cand = torch.clamp(mu[None] + sd * eps, ctrl.coeff_min, ctrl.coeff_max)
+            cand[0] = mu
+            if fb_seq is not None:
+                cand[1] = torch.clamp(fb_seq, ctrl.coeff_min, ctrl.coeff_max)
+            costs = costs_of(cand)
+            elites = cand[torch.topk(-costs, mpc.n_elites).indices]
+            mu = elites.mean(dim=0)
+            sd = elites.std(dim=0, correction=0) + 1e-3
+            best = torch.min(costs)
+    if mpc.n_grad_iters > 0:
+        mu = _gradient_refine(state, mu, grid, cfg, ctrl, mpc, actuator)
     return mu[0], mu, best
+
+
+def _check_differentiable(cfg: SimConfig) -> None:
+    if cfg.deposit_method == "pallas":
+        raise ValueError(
+            "gradient refinement (n_grad_iters > 0) differentiates the PIC step, and the CIC "
+            "kernels (deposit_method='pallas') have no backward pass: use 'dense' or 'scatter'"
+        )
+
+
+def _refine_cost(u: torch.Tensor, state: PlasmaState, grid: Grid, cfg: SimConfig,
+                 mpc: MPCConfig, actuator: FourierActuator) -> torch.Tensor:
+    """Horizon cost of the (H, 2K) sequence ``u`` under the plan model's full
+    PIC step, each step recomputed in the backward pass."""
+    pe_f = _pe_factor(cfg, mpc)
+
+    def one_step(x, v, e_ext):
+        new = step(PlasmaState(x, v), grid, cfg, e_ext)
+        return new.x, new.v
+
+    st, costs, pes = state, [], []
+    for ut in u:
+        x, v = checkpoint(one_step, st.x, st.v, actuator.compute_e_packed(ut), use_reentrant=False)
+        st = PlasmaState(x, v)
+        pe = pe_f * _energies(st, grid, cfg)[0]
+        costs.append(mpc.w_field * pe + mpc.w_input * actuator.input_energy(ut))
+        pes.append(pe)
+    return _add_terminal(torch.sum(torch.stack(costs)), torch.stack(pes), mpc)
+
+
+def _gradient_refine(state, mean, grid, cfg, ctrl, mpc, actuator):
+    """Local trajectory optimisation of the nominal: ``n_grad_iters`` Adam
+    steps (``grad_lr``, no clip, optax's arithmetic) on the horizon cost,
+    with gradients through the PIC dynamics; non-finite gradient entries are
+    zeroed and each iterate is clipped to the coefficient bounds. The result
+    replaces ``mean`` only if it lowers the cost."""
+    _check_differentiable(cfg)
+    opt = Adam([mean], mpc.grad_lr)
+    u = mean.detach()
+    for _ in range(mpc.n_grad_iters):
+        leaf = u.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(_refine_cost(leaf, state, grid, cfg, mpc, actuator), leaf)
+        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))  # divergence guard
+        u = torch.clamp(u + opt.updates([g])[0], ctrl.coeff_min, ctrl.coeff_max)
+    with torch.no_grad():
+        better = (_refine_cost(u, state, grid, cfg, mpc, actuator)
+                  < _refine_cost(mean, state, grid, cfg, mpc, actuator))
+    return torch.where(better, u, mean)
+
+
 def _apply_fidelity_guard(plan_out, full_x, full_cfg, ctrl, mpc):
     """Gate an (action, new_mean, best) solve on the fidelity ratio.
 
@@ -719,7 +765,8 @@ def plan(
     the result. ``noise``: optional unit-variance perturbations (antithetic
     pairs included) in place of draws from ``generator``: (K, H, 2K) for
     MPPI, (n_iters, K, H, 2K) for CEM."""
-    _check_supported(mpc)
+    if mpc.n_grad_iters > 0:
+        _check_differentiable(cfg)
     if mean.shape[-1] != 2 * actuator.max_mode:
         raise ValueError(
             f"coefficient/actuator mode mismatch: the nominal carries "

@@ -60,7 +60,9 @@ def test_mpc_post_init_warns_like_jax():
 
 def test_port_never_imports_jax():
     """A fresh interpreter (this process has jax loaded by conftest) imports
-    every module of the port and finds no jax in sys.modules."""
+    every module of the port and finds no jax in sys.modules, nor flax, optax,
+    orbax or msgpack (the RL slice reads and writes flax's weight files with
+    its own codec)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import plasma_control_tpu_torch as pkg
@@ -68,7 +70,9 @@ def test_port_never_imports_jax():
         for name in names:
             importlib.import_module(name)
         assert len(names) >= 15, names
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "plasma_control_tpu.")))
+        banned = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in banned or m.startswith("plasma_control_tpu."))
         assert not bad, bad
         print("ok", len(names))
     """)

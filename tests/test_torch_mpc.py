@@ -147,16 +147,6 @@ def test_generator_draws_are_seeded():
     assert torch.isfinite(a.field_energy).all()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(n_grad_iters=2),
-])
-def test_unported_settings_raise(kw):
-    _, t = _both(dict(horizon=4, n_candidates=8, plan_modes=4, **kw))
-    with pytest.raises(NotImplementedError):
-        mpc.plan(t["state"], torch.zeros(4, 2 * KA), 0.3, torch.Generator(), t["grid"],
-                 t["cfg"], t["ctrl"], t["mpc"], t["actuator"])
-
-
 def test_mode_mismatch_raises():
     _, t = _both(dict(horizon=4, n_candidates=8, plan_modes=4))
     with pytest.raises(ValueError):
