@@ -119,6 +119,29 @@ any failure exits non-zero:
    s. ``main()`` of ``run_dagger`` (the committed actor; and ``--optimize``
       cut to one iteration), ``run_ddpg``, ``run_ppo`` and ``run_sac``
       (``--optimize``, one episode) at their CLI defaults: data written;
+   t. ``[resume]``: ``main()`` of ``run_wo_oc`` and ``run_feedback`` at
+      config-4's environment (40 steps) and of ``run_mpc`` with the twin
+      flags (20 steps) with ``--checkpoint_every`` at half the run, each
+      uninterrupted and then cut at half and resumed: final checkpoints,
+      resumed traces and launches per step asserted bitwise / exact; ms per
+      checkpoint save and restore;
+   u. ``[resume-train]``: DDPG, PPO and SAC at ``[rl-train]``'s widths, one
+      episode with a checkpoint, resumed to two, against two uninterrupted
+      episodes run twice: the resumed run at least as close to the
+      uninterrupted one as the two repeats are to each other, and the
+      offline stage skipped; the checkpoint's bytes, save and restore ms;
+   v. ``[aot]``: the control step captured as one CUDA graph
+      (``io/aot.py``) at the spectral, grid and twin slices: 20 replays
+      bitwise equal to 20 eager steps, the noise advancing between replays,
+      the device ops of a replay against the eager body's; ms per control
+      step eager against replay (synchronised, 100 steps), device busy per
+      replay, capture time, graph memory;
+   w. ``[aot-cold]``: ``run_mpc --save_aot`` writes the portable and the
+      compiled artifact at the spectral slice's flags; a fresh
+      ``python -m plasma_control_tpu_torch.run_mpc --aot`` from a copy of the
+      package with an empty build directory runs each (the portable one
+      builds the kernels, the compiled one installs its library), both
+      equal to the eager run bitwise; wall times; a stale artifact refused;
 5. check one candidate block and a three-step closed loop on the card
    against the same computation on the CPU, where every wrapper runs its
    plain version: the spectral slice from its initial state; the grid slice
@@ -146,6 +169,7 @@ time where one computes the same function) and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -2549,6 +2573,547 @@ def check_rl_against_cpu(torch) -> None:
     require(rel <= 1e-5, f"[rl-cpu] PE card vs CPU: max rel {rel}")
 
 
+# the slices whose control step [aot] captures: (name, _setup arguments)
+AOT_SLICES = (("spectral", dict(mpc=MPC)), ("grid", dict(mpc=GRID_MPC)),
+              ("twin", dict(sim=CFG4_SIM, max_mode=CFG4_MAX_MODE, mpc=TWIN_MPC)))
+AOT_STEPS, AOT_TIMED = 20, 100
+AOT_REFINE_STEPS = 3
+
+
+def device_window(torch, fn, reps: int, marker: str) -> list:
+    """The device events (kernels, copies, sets) of ``reps`` calls of ``fn``
+    in one profiler window, recorded after a discarded warm-up window of
+    ``reps`` calls. ``fn`` launches one kernel whose name holds ``marker``
+    per call: a window without exactly ``reps`` of them, or whose event
+    count is not a multiple of ``reps``, missed events and is taken again
+    (each miss logged), up to ``PROFILER_WINDOWS`` times, then the run
+    fails."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(PROFILER_WINDOWS):
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/trace.json"
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                         on_trace_ready=lambda p, path=path: p.export_chrome_trace(path)) as prof:
+                for _step in range(2):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            with open(path) as f:
+                trace = json.load(f)
+        events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("ph") == "X"]
+        marked = sum(marker in e["name"] for e in events if e["cat"] == "kernel")
+        if marked == reps and len(events) % reps == 0:
+            return events
+        log(f"[profiler] window {attempt + 1} of {PROFILER_WINDOWS}: {marked} {marker} events "
+            f"and {len(events)} device events for {reps} calls")
+    require(False, f"no profiler window of {PROFILER_WINDOWS} held all the calls' device events")
+
+
+def busy_ms(events: list) -> float:
+    """Length of the union of the events' intervals, in ms."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
+def synced_ms(torch, fn, reps: int) -> list:
+    """Host-clock milliseconds of each of ``reps`` calls, the card
+    synchronised after each."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def _spread(times: list) -> str:
+    return f"median {statistics.median(times):.4f} (min {min(times):.4f}, max {max(times):.4f})"
+
+
+def run_aot(torch) -> None:
+    """The control step captured as one CUDA graph (``io/aot.py``
+    ``GraphedStep``) at the spectral, grid and twin slices, each from its
+    seeded state: AOT_STEPS replays against AOT_STEPS eager steps of
+    ``control_step_fn`` from the same state and generator seed, asserted
+    bitwise equal (traces, applied coefficients, final state and nominal);
+    two replays from one coherent two-stream state must differ in the
+    applied action or the best cost (the registered generator advances:
+    the step is deterministic given its draws); the device ops of one
+    replay must be those of one eager call of the captured body (the step,
+    the three state copies and the output packing) plus the two fills of
+    the generator's seed and offset that replay() launches (the bare step's
+    count is reported beside them). Reports ms per control step eager
+    against replay (host clock, card synchronised each step, AOT_TIMED
+    steps), device busy per replayed step, capture time and the graph's
+    memory; then the refined step (:func:`run_aot_refine`)."""
+    from plasma_control_tpu_torch.io.aot import GraphedStep, aot_mpc_rollout, control_step_fn
+    from plasma_control_tpu_torch.models.pic import init_state
+
+    dev = torch.device("cuda")
+    fns = _kernel_fns()
+    for name, kw in AOT_SLICES:
+        cfg, ctrl, mpc, grid, act = _setup(torch, dev, **kw)
+        state = init_state(cfg, torch.Generator(device=dev).manual_seed(cfg.seed), device=dev)
+        shape = (mpc.horizon, ctrl.n_actions)
+        eager_step = control_step_fn(grid, cfg, ctrl, mpc, act)
+        _reset(fns)
+        eager = aot_mpc_rollout(eager_step, state, torch.Generator(device=dev).manual_seed(11),
+                                AOT_STEPS, *shape)
+        eager_launches = _counts(fns)
+        graphed = GraphedStep(control_step_fn(grid, cfg, ctrl, mpc, act))
+        gen = torch.Generator(device=dev).manual_seed(11)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _reset(fns)
+        graphed.capture(state.x, state.v, torch.zeros(shape, device=dev), gen)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        capture_launches = _counts(fns)
+        mem1 = torch.cuda.memory_allocated()
+        _reset(fns)
+        replay = aot_mpc_rollout(graphed, state, gen, AOT_STEPS, *shape)
+        require(not any(_counts(fns).values()), f"[aot] {name}: a replay called a wrapper")
+        same = {k: torch.equal(getattr(eager, k), getattr(replay, k))
+                for k in ("field_energy", "kinetic", "coeffs", "input_energy", "plan_cost",
+                          "final_mean")}
+        same["x"] = torch.equal(eager.final_state.x, replay.final_state.x)
+        same["v"] = torch.equal(eager.final_state.v, replay.final_state.v)
+        require(all(same.values()) and bool(torch.isfinite(replay.field_energy).all()),
+                f"[aot] {name}: {AOT_STEPS} replays against eager steps, bitwise equal: {same}")
+        # two replays from one state draw different noise: another action
+        # and best candidate cost, from a coherent two-stream state at which
+        # the fidelity guards let the drive through (at the seeded states the
+        # grid and twin guards zero the action and the nominal wins)
+        mean0 = torch.zeros(shape, device=dev)
+        drive = coherent_state(torch, cfg.n_particles, cfg.length, seed=5)
+        one, two = (graphed(drive.x.to(dev), drive.v.to(dev), mean0, gen) for _ in range(2))
+        require(not (torch.equal(one[3], two[3]) and torch.equal(one[7], two[7])),
+                f"[aot] {name}: two replays from one state applied the same action and found "
+                f"the same best cost: the noise did not advance")
+        # device ops of one replay against one eager call of the captured body
+        reps = 5
+        marker = "horizon_kernel"  # kernel 1 (spectral_horizon_kernel) or 6, once per step
+        replay_events = device_window(torch, graphed.graph.replay, reps, marker)
+        body_events = device_window(torch, graphed._body, reps, marker)
+        x, v, m = state.x, state.v, mean0
+        step_events = device_window(torch, lambda: eager_step(x, v, m, gen), reps, marker)
+        per = lambda evs: len(evs) / reps
+        # a graph runs a device-to-device copy as a kernel of its own name
+        names = lambda evs: collections.Counter(
+            "device-to-device copy" if e["name"].lower().startswith("memcpy") else e["name"]
+            for e in evs)
+        extra = names(replay_events) - names(body_events)
+        missing = names(body_events) - names(replay_events)
+        # replay() writes the registered generator's seed and offset into
+        # the graph's device tensors before it launches the graph: two fills
+        require(not missing and sum(extra.values()) == 2 * reps
+                and all("Fill" in k for k in extra),
+                f"[aot] {name}: {per(replay_events)} device ops per replay, {per(body_events)} "
+                f"per eager call of the captured body; replay only {dict(extra)}, eager only "
+                f"{dict(missing)}")
+        busy = busy_ms(replay_events) / reps
+        # ms per control step: eager against replay, synchronised each step
+        carry = [state.x, state.v, torch.zeros(shape, device=dev)]
+
+        def eager_call():
+            carry[:] = eager_step(*carry, gen)[:3]
+
+        def replay_call():
+            carry[:] = graphed(*carry, gen)[:3]
+
+        eager_step(*carry, gen)
+        t_eager = synced_ms(torch, eager_call, AOT_TIMED)
+        carry[:] = [state.x, state.v, torch.zeros(shape, device=dev)]
+        t_replay = synced_ms(torch, replay_call, AOT_TIMED)
+        log(f"[aot] {name} slice (N={cfg.n_particles}, M={cfg.n_mesh}, K={mpc.n_candidates}, "
+            f"H={mpc.horizon}): {AOT_STEPS} replays bitwise equal to {AOT_STEPS} eager steps "
+            f"(wrapper launches in the eager run {eager_launches}); two replays from one "
+            f"coherent state differ; capture {capture_s:.3f} s ({graphed.WARMUP} eager warm-up "
+            f"steps, wrapper launches {capture_launches}); graph memory "
+            f"{mem1 - mem0} bytes (torch.cuda.memory_allocated before and after capture)")
+        log(f"[aot] {name}: device ops per replay {per(replay_events):g} (the captured body's "
+            f"{per(body_events):g} plus the generator's seed and offset fills "
+            f"{ {k: v / reps for k, v in extra.items()} }), per bare control_step_fn call "
+            f"{per(step_events):g}; device busy per replayed step {busy:.4f} ms (profiler "
+            f"window of {reps})")
+        log(f"[aot] {name}: ms per control step, host clock, card synchronised each step, "
+            f"{AOT_TIMED} steps: eager {_spread(t_eager)}; replay {_spread(t_replay)}")
+    run_aot_refine(torch)
+
+
+def run_aot_refine(torch) -> None:
+    """The control step with gradient refinement (``[gradrefine]``'s solve:
+    the spectral slice, dense deposit, GRADREFINE_ITERS Adam steps with
+    autograd and ``torch.utils.checkpoint`` through the plan model) captured
+    as one CUDA graph: AOT_REFINE_STEPS replays bitwise equal to as many
+    eager steps from one generator seed; ms per control step eager against
+    replay, synchronised each step, after those (so both run warm)."""
+    from plasma_control_tpu_torch.io.aot import GraphedStep, aot_mpc_rollout, control_step_fn
+    from plasma_control_tpu_torch.models.pic import init_state
+
+    dev = torch.device("cuda")
+    cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=dict(SIM, deposit_method="dense"),
+                                       mpc=dict(MPC, n_grad_iters=GRADREFINE_ITERS))
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(cfg.seed), device=dev)
+    shape = (mpc.horizon, ctrl.n_actions)
+    eager_step = control_step_fn(grid, cfg, ctrl, mpc, act)
+    eager = aot_mpc_rollout(eager_step, state, torch.Generator(device=dev).manual_seed(11),
+                            AOT_REFINE_STEPS, *shape)
+    graphed = GraphedStep(control_step_fn(grid, cfg, ctrl, mpc, act))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    graphed.capture(state.x, state.v, torch.zeros(shape, device=dev), gen)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replay = aot_mpc_rollout(graphed, state, gen, AOT_REFINE_STEPS, *shape)
+    same = {k: torch.equal(getattr(eager, k), getattr(replay, k))
+            for k in ("field_energy", "coeffs", "plan_cost", "final_mean")}
+    same["x"] = torch.equal(eager.final_state.x, replay.final_state.x)
+    require(all(same.values()), f"[aot] refined step: replays against eager steps: {same}")
+    carry = [replay.final_state.x, replay.final_state.v, replay.final_mean]
+
+    def eager_call():
+        carry[:] = eager_step(*carry, gen)[:3]
+
+    def replay_call():
+        carry[:] = graphed(*carry, gen)[:3]
+
+    t_eager = synced_ms(torch, eager_call, AOT_REFINE_STEPS)
+    carry[:] = [replay.final_state.x, replay.final_state.v, replay.final_mean]
+    t_replay = synced_ms(torch, replay_call, AOT_REFINE_STEPS)
+    log(f"[aot] refined step ({GRADREFINE_ITERS} Adam steps through H={mpc.horizon} dense "
+        f"Yoshida-4 steps, autograd and torch.utils.checkpoint inside the capture): "
+        f"{AOT_REFINE_STEPS} replays bitwise equal to {AOT_REFINE_STEPS} eager steps; capture "
+        f"{capture_s:.3f} s; ms per control step, synchronised each, {AOT_REFINE_STEPS} steps: "
+        f"eager {_spread(t_eager)}; replay {_spread(t_replay)}")
+
+
+RESUME_STEPS, RESUME_MPC_STEPS = 40, 20
+# the spectral slice through run_mpc's flags (bench.py:163-181), the CLI's
+# dense deposit
+SPECTRAL_FLAGS = ["--simcase", "bump-on-tail", "--num_particle", "5000", "--num_mesh", "250",
+                  "--max_mode", "4", "--horizon", "6", "--w_terminal", "4", "--n_candidates",
+                  "384", "--plan_modes", "8", "--spectral_drift", "rot"]
+AOT_COLD_STEPS = 3
+
+
+def _data_dir() -> str:
+    import os
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dataset")
+    os.makedirs(data, exist_ok=True)
+    return data
+
+
+def run_resume(torch) -> None:
+    """Segmented runs through ``main()`` with ``--checkpoint_every`` (half
+    the run per segment): run_wo_oc and run_feedback at config-4's
+    environment (N=100000, M=256, max_mode 8 for feedback, the CIC kernels
+    as CFG4_SIM sets them) for RESUME_STEPS steps, and run_mpc with the twin
+    slice's flags (the CLI's dense deposit, as ``[entry]``) for
+    RESUME_MPC_STEPS. Each is run uninterrupted, then cut at half (a shorter
+    ``--t_max`` into another checkpoint path) and resumed. Asserts bitwise:
+    the final checkpoints (state, and for MPC the nominal, the applied
+    coefficients and the generator's state), the resumed run's traces
+    against the tail of the uninterrupted run's (MPC: the whole saved run,
+    replayed from the carried coefficients), and the launches of kernels
+    1c / 2 / 3 per step of ``[entry]`` / ``[feedback]`` (the uncontrolled
+    run's energies also deposit once per segment at its start). Reports ms
+    per checkpoint save and restore (synchronised) and the checkpoint's
+    bytes."""
+    import dataclasses
+    import importlib
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from plasma_control_tpu_torch.io import resume
+    from plasma_control_tpu_torch.io.checkpoint import restore_checkpoint
+    from plasma_control_tpu_torch.io.export import load_run
+
+    env = ["--simcase", "two-stream", "--num_particle", str(CFG4_SIM["n_particles"]),
+           "--num_mesh", str(CFG4_SIM["n_mesh"])]
+    cases = (("wo-oc", "run_wo_oc", env, RESUME_STEPS, True),
+             ("feedback", "run_feedback", env + ["--max_mode", str(CFG4_MAX_MODE)],
+              RESUME_STEPS, True),
+             ("mpc-control", "run_mpc", TWIN_FLAGS, RESUME_MPC_STEPS, False))
+    fns = _kernel_fns()
+    for tag, module, flags, steps, pallas in cases:
+        script = importlib.import_module(f"plasma_control_tpu_torch.{module}")
+        saves, restores = [], []
+        saved = (_synchronised_timer(torch, resume, "save_checkpoint", saves),
+                 _synchronised_timer(torch, resume, "restore_checkpoint", restores))
+        build = script.build_sim_config
+        if pallas:  # config-4's environment steps on the CIC kernels
+            script.build_sim_config = lambda args: dataclasses.replace(
+                build(args), deposit_method=CFG4_SIM["deposit_method"])
+        half = steps // 2
+        try:
+            with tempfile.TemporaryDirectory(dir=_data_dir()) as tmp:
+                def run(name, t_steps, ck):
+                    argv = flags + ["--t_max", f"{0.1 * t_steps:g}", "--checkpoint_every",
+                                    str(half), "--checkpoint_path", f"{tmp}/{ck}", "--is_save",
+                                    "--save_file", f"{tmp}/{name}", "--save_plot", f"{tmp}/p"]
+                    _reset(fns)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    script.main(argv)
+                    torch.cuda.synchronize()
+                    return (load_run(f"{tmp}/{name}/two-stream/{tag}/data.npz"), _counts(fns),
+                            time.perf_counter() - t0)
+
+                full, full_counts, full_wall = run("full", steps, "ck_full")
+                run("cut", half, "ck_res")
+                res, res_counts, res_wall = run("res", steps, "ck_res")
+                ck_full = restore_checkpoint(f"{tmp}/ck_full")
+                ck_res = restore_checkpoint(f"{tmp}/ck_res")
+                ck_bytes = os.path.getsize(f"{tmp}/ck_full")
+        finally:
+            resume.save_checkpoint, resume.restore_checkpoint = saved
+            script.build_sim_config = build
+        same = {k: (np.array_equal(ck_full[k], ck_res[k]) if isinstance(ck_full[k], np.ndarray)
+                    else torch.equal(ck_full[k], ck_res[k]) if isinstance(ck_full[k], torch.Tensor)
+                    else ck_full[k] == ck_res[k]) for k in ck_full}
+        require(all(same.values()) and ck_full["t_done"] == steps,
+                f"[resume] {tag}: final checkpoints of the resumed and the uninterrupted run "
+                f"differ: {same}")
+        if tag == "mpc-control":
+            keys, tail = ("snapshot", "E", "PE", "coeff_cos", "coeff_sin"), {}
+            want = {"spectral_horizon_twin": steps}
+            want_res = {"spectral_horizon_twin": half}
+        else:
+            pe0 = half + 1 if tag == "wo-oc" else half  # feedback's PE starts at step 1
+            keys = ("snapshot", "PE") + (("coeff_cos", "coeff_sin") if tag == "feedback" else ())
+            tail = {"snapshot": (slice(None), slice(half + 1, None)), "PE": slice(pe0, None),
+                    "coeff_cos": (slice(None), slice(half, None)),
+                    "coeff_sin": (slice(None), slice(half, None))}
+            per = 4 if tag == "wo-oc" else 5
+            lead = 1 if tag == "wo-oc" else 0  # the initial energies of each segment
+            want = {"deposit_cic": per * steps + 2 * lead, "gather_cic": 3 * steps}
+            want_res = {"deposit_cic": per * half + lead, "gather_cic": 3 * half}
+        for key in keys:
+            ref = full[key][tail[key]] if key in tail else full[key]
+            require(np.array_equal(res[key], ref) and bool(np.isfinite(res[key]).all()),
+                    f"[resume] {tag}: resumed {key} differs from the uninterrupted run's")
+        require(all(full_counts[k] == v for k, v in want.items())
+                and all(res_counts[k] == v for k, v in want_res.items()),
+                f"[resume] {tag}: launches {full_counts} uninterrupted, {res_counts} resumed; "
+                f"want {want}, {want_res}")
+        log(f"[resume] {tag}: {steps} steps in segments of {half} (N={CFG4_SIM['n_particles']}"
+            f"), cut at {half} and resumed: final checkpoint ({', '.join(ck_full)}) and resumed "
+            f"{', '.join(keys)} bitwise equal to the uninterrupted run's; launches uninterrupted "
+            f"{ {k: v for k, v in full_counts.items() if v} }, resumed "
+            f"{ {k: v for k, v in res_counts.items() if v} }; wall {full_wall:.3f} s "
+            f"uninterrupted, {res_wall:.3f} s resumed")
+        log(f"[resume] {tag}: checkpoint {ck_bytes} bytes; save (synchronised) "
+            f"{_spread(saves)} ms over {len(saves)}; restore {_spread(restores)} ms over "
+            f"{len(restores)}")
+
+
+def run_resume_train(torch) -> None:
+    """DDPG, PPO and SAC at ``[rl-train]``'s widths and depth cuts: one
+    episode with ``ckpt_every=1``, then resumed to two, against two
+    uninterrupted episodes run twice. Asserts that the resumed run matches
+    the uninterrupted one at least as closely as the two uninterrupted runs
+    match each other (history, the actor's parameters, the best actor), and
+    bitwise where they do; that the resumed run skipped the offline stage
+    (its launches are one episode's); reports both differences, the
+    checkpoint's bytes on disk, and the save and restore times."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from plasma_control_tpu_torch.config import ControlConfig, SimConfig
+    from plasma_control_tpu_torch.control.actuator import make_actuator
+    from plasma_control_tpu_torch.control.rl import ddpg, ppo, sac
+    from plasma_control_tpu_torch.interop import actor_params_to_numpy
+    from plasma_control_tpu_torch.io import resume
+    from plasma_control_tpu_torch.ops.grid import make_grid
+
+    dev = torch.device("cuda")
+    env = dict(simcase="two-stream", dt=0.1, t_max=50.0, deposit_method="pallas")
+    cases = (
+        ("ddpg", ddpg, SimConfig(**env), dict(max_mode=3, coeff_min=-1.25, coeff_max=1.25),
+         ddpg.DDPGConfig(output_min=-1.25, output_max=1.25, min_buffer_size=RL_MIN_BUFFER),
+         lambda ts: ts.actor),
+        ("ppo", ppo, SimConfig(**dict(env, dt=0.05, t_max=PPO_T_MAX)), dict(max_mode=3),
+         ppo.PPOConfig(), lambda ts: ts.policy),
+        ("sac", sac, SimConfig(**dict(env, n_particles=10000, n_mesh=500)), dict(max_mode=5),
+         sac.SACConfig(), lambda ts: ts.actor),
+    )
+    fns = _kernel_fns()
+    for name, mod, cfg, ctrl_kw, hp, actor_of in cases:
+        ctrl = ControlConfig(reward_n_mesh=cfg.n_mesh, **ctrl_kw)
+        grid = make_grid(cfg.n_mesh, cfg.length, device=dev)
+        act = make_actuator(cfg.length, cfg.n_mesh, ctrl.max_mode, device=dev)
+
+        def train(episodes, **kw):
+            ts, best, hist = mod.train(cfg, ctrl, hp, grid, act,
+                                       torch.Generator(device=dev).manual_seed(cfg.seed),
+                                       num_episodes=episodes, verbose=0, **kw)
+            flat = [np.asarray(hist[k]) for k in sorted(hist)]
+            params = [p.detach().cpu().numpy() for p in actor_of(ts).state_dict().values()]
+            best = list(_leaves(best))
+            return flat + params + best
+
+        saves, restores = [], []
+        saved = (_synchronised_timer(torch, resume, "save_train_checkpoint", saves),
+                 _synchronised_timer(torch, resume, "restore_train_checkpoint", restores))
+        try:
+            with tempfile.TemporaryDirectory(dir=_data_dir()) as tmp:
+                one, two = train(RL_EPISODES), train(RL_EPISODES)
+                train(1, ckpt_path=f"{tmp}/ck", ckpt_every=1)
+                ck_bytes = sum(os.path.getsize(f"{tmp}/ck/{f}") for f in os.listdir(f"{tmp}/ck"))
+                _reset(fns)
+                resumed = train(RL_EPISODES, ckpt_path=f"{tmp}/ck", ckpt_every=1)
+                launches = _counts(fns)
+        finally:
+            resume.save_train_checkpoint, resume.restore_train_checkpoint = saved
+        diff = lambda a, b: max(float(np.max(np.abs(x.astype(np.float64) - y)))
+                                if x.size else 0.0 for x, y in zip(a, b))
+        bitwise = lambda a, b: all(np.array_equal(x, y) for x, y in zip(a, b))
+        d_repeat, d_resume = diff(one, two), diff(resumed, one)
+        require(d_resume <= d_repeat and (bitwise(resumed, one) or not bitwise(one, two)),
+                f"[resume-train] {name}: resumed run off the uninterrupted one by {d_resume}, "
+                f"two uninterrupted runs by {d_repeat}")
+        steps = cfg.n_steps
+        per_step = 4 if name == "ddpg" else 3
+        require(launches["deposit_cic"] == per_step * steps and launches["gather_cic"] == 3 * steps,
+                f"[resume-train] {name}: resumed launches {launches}: want one episode's, the "
+                f"offline stage skipped")
+        log(f"[resume-train] {name} (N={cfg.n_particles}, M={cfg.n_mesh}, {steps} steps per "
+            f"episode): 1 episode, checkpoint, resumed to {RL_EPISODES} against {RL_EPISODES} "
+            f"uninterrupted episodes twice: max |resumed - uninterrupted| {d_resume:.6g}, max "
+            f"|uninterrupted - uninterrupted| {d_repeat:.6g} (history, actor parameters, best "
+            f"actor; bitwise {'equal' if d_resume == 0 else 'different'}); resumed launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        log(f"[resume-train] {name}: checkpoint {ck_bytes} bytes on disk (state, meta.npz, "
+            f"best.msgpack); ms per save (synchronised; after episode 1, then after episode "
+            f"{RL_EPISODES} of the resumed run) {[round(t, 4) for t in saves]}; restore that "
+            f"loaded it {restores[-1]:.4f} ms (the interrupted run's look for one found none: "
+            f"{restores[0]:.4f} ms)")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaves(tree[k])
+    else:
+        import numpy as np
+
+        yield np.asarray(tree)
+
+
+def run_aot_cold(torch) -> None:
+    """``run_mpc --save_aot`` at the spectral slice's flags writes both
+    artifacts (portable JSON and compiled ``.pkl``); then for each a fresh
+    ``python -m plasma_control_tpu_torch.run_mpc --aot`` of AOT_COLD_STEPS
+    steps runs in a subprocess from a copy of the package in a temporary
+    directory, whose build directory is empty: the portable artifact builds
+    the kernels (nvcc), the compiled one installs its library. Reports each
+    process's wall time to the end of its loop (from its output lines'
+    arrival) beside its own load and loop times; asserts that both saved
+    runs equal an eager in-process run of the same flags bitwise, that no
+    build ran for the compiled artifact, and that an artifact with another
+    kernel hash is refused."""
+    import json
+    import os
+    import shutil
+    import struct
+    import tempfile
+
+    import numpy as np
+
+    from plasma_control_tpu_torch import run_mpc
+    from plasma_control_tpu_torch.io import aot
+    from plasma_control_tpu_torch.io.export import load_run
+    from plasma_control_tpu_torch.ops.kernels import _build
+
+    steps = ["--t_max", f"{0.1 * AOT_COLD_STEPS:g}", "--is_save", "--save_plot", "p"]
+    with tempfile.TemporaryDirectory(dir=_data_dir()) as tmp:
+        for kind, name in (("portable", "step.json"), ("compiled", "step.pkl")):
+            t0 = time.perf_counter()
+            run_mpc.main(SPECTRAL_FLAGS + ["--save_aot", f"{tmp}/{name}"])
+            log(f"[aot-cold] run_mpc --save_aot {name}: {time.perf_counter() - t0:.3f} s, "
+                f"{os.path.getsize(f'{tmp}/{name}')} bytes")
+        run_mpc.main(SPECTRAL_FLAGS + steps + ["--save_file", f"{tmp}/eager"])
+        eager = load_run(f"{tmp}/eager/bump-on-tail/mpc-control/data.npz")
+        lib_name = _build._library_path().name
+        for kind, name in (("portable", "step.json"), ("compiled", "step.pkl")):
+            fresh = f"{tmp}/fresh_{kind}"
+            shutil.copytree(os.path.dirname(os.path.abspath(run_mpc.__file__)),
+                            f"{fresh}/plasma_control_tpu_torch",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            require(not os.path.exists(f"{fresh}/build"), "[aot-cold] the copy has a build")
+            argv = [sys.executable, "-m", "plasma_control_tpu_torch.run_mpc", *SPECTRAL_FLAGS,
+                    *steps, "--save_file", f"{fresh}/out", "--aot", f"{tmp}/{name}"]
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(argv, cwd=fresh, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            lines = []
+            for line in proc.stdout:
+                lines.append((time.perf_counter() - t0, line.rstrip()))
+            rc = proc.wait()
+            wall = time.perf_counter() - t0
+            out = "\n".join(text for _, text in lines)
+            require(rc == 0, f"[aot-cold] {kind}: the fresh process failed ({rc}):\n{out[-3000:]}")
+            at = {key: t for t, text in lines for key in ("loaded", "through the artifact")
+                  if key in text}
+            fresh_run = load_run(f"{fresh}/out/bump-on-tail/mpc-control/data.npz")
+            for key in ("snapshot", "E", "PE", "coeff_cos", "coeff_sin"):
+                require(np.array_equal(fresh_run[key], eager[key]),
+                        f"[aot-cold] {kind}: {key} differs from the eager in-process run")
+            built = os.listdir(f"{fresh}/build/plasma_control_tpu_torch")
+            require(lib_name in built, f"[aot-cold] {kind}: no {lib_name} in {built}")
+            load_line = next(text for _, text in lines if "loaded" in text)
+            loop_line = next(text for _, text in lines if "through the artifact" in text)
+            log(f"[aot-cold] {kind} artifact, fresh process (python -m "
+                f"plasma_control_tpu_torch.run_mpc --aot, {AOT_COLD_STEPS} steps, empty build "
+                f"directory): {wall:.3f} s wall to exit; its loop ended {at['through the artifact']:.3f}"
+                f" s after launch (load line at {at['loaded']:.3f} s); '{load_line}'; "
+                f"'{loop_line}'; saved run bitwise the eager in-process run's")
+        # another kernel hash: refused
+        with open(f"{tmp}/step.pkl", "rb") as f:
+            data = f.read()
+        (n,) = struct.unpack("<Q", data[8:16])
+        fp = json.loads(data[16:16 + n])
+        fp["kernels"] = "libpct_0000000000000000.so"
+        blob = json.dumps(fp).encode()
+        with open(f"{tmp}/stale.pkl", "wb") as f:
+            f.write(data[:8] + struct.pack("<Q", len(blob)) + blob + data[16 + n:])
+        try:
+            aot.load_compiled_plan(f"{tmp}/stale.pkl")
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        require(refused is not None and "stale artifact" in refused,
+                "[aot-cold] an artifact of other kernel sources was loaded")
+        log(f"[aot-cold] artifact with another kernel hash refused: {refused}")
+
+
+def timed(fn, *args):
+    """``fn(*args)``, logging its wall time (``[phase]``)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2597,39 +3162,43 @@ def main() -> int:
             source="plasma_control_tpu_torch/csrc/spectral_horizon.cu",
             replaces="plasma_control_tpu/ops/pallas/spectral_horizon.py:303"),
     }
-    check_kernels(torch, rows)
-    check_grid_kernels(torch, rows)
-    check_twin_kernel(torch, rows)
-    check_global_scratch(torch)
-    check_wide_modes(torch)
-    check_wide_mesh(torch, rows)
-    check_gather_large(torch, rows)
-    check_damping_kernels(torch, rows)
-    run_slice(torch, rows)
-    end_state = run_grid_slice(torch, rows)
-    run_leapfrog_loop(torch, rows)
-    run_kdk_horizon(torch, rows, end_state)
-    run_config4(torch)
-    run_twin_slice(torch, rows)
-    run_entry_point(torch)
-    run_million(torch, rows)
-    run_twin_km32(torch, rows)
-    run_feedback(torch)
-    run_damping(torch, rows)
-    run_batch(torch)
-    run_golden(torch)
-    run_entry_scripts(torch)
-    run_learned(torch)
-    run_dagger(torch, rows)
-    run_rl_train(torch)
-    run_gradrefine(torch)
-    run_entry_rl(torch)
-    check_against_cpu(torch)
-    check_grid_against_cpu(torch, end_state)
-    check_twin_against_cpu(torch)
-    check_new_loops_against_cpu(torch)
-    check_rl_against_cpu(torch)
-    check_loops_repeat(torch)
+    timed(check_kernels, torch, rows)
+    timed(check_grid_kernels, torch, rows)
+    timed(check_twin_kernel, torch, rows)
+    timed(check_global_scratch, torch)
+    timed(check_wide_modes, torch)
+    timed(check_wide_mesh, torch, rows)
+    timed(check_gather_large, torch, rows)
+    timed(check_damping_kernels, torch, rows)
+    timed(run_slice, torch, rows)
+    end_state = timed(run_grid_slice, torch, rows)
+    timed(run_leapfrog_loop, torch, rows)
+    timed(run_kdk_horizon, torch, rows, end_state)
+    timed(run_config4, torch)
+    timed(run_twin_slice, torch, rows)
+    timed(run_entry_point, torch)
+    timed(run_million, torch, rows)
+    timed(run_twin_km32, torch, rows)
+    timed(run_feedback, torch)
+    timed(run_damping, torch, rows)
+    timed(run_batch, torch)
+    timed(run_golden, torch)
+    timed(run_entry_scripts, torch)
+    timed(run_learned, torch)
+    timed(run_dagger, torch, rows)
+    timed(run_rl_train, torch)
+    timed(run_gradrefine, torch)
+    timed(run_entry_rl, torch)
+    timed(run_resume, torch)
+    timed(run_resume_train, torch)
+    timed(run_aot, torch)
+    timed(run_aot_cold, torch)
+    timed(check_against_cpu, torch)
+    timed(check_grid_against_cpu, torch, end_state)
+    timed(check_twin_against_cpu, torch)
+    timed(check_new_loops_against_cpu, torch)
+    timed(check_rl_against_cpu, torch)
+    timed(check_loops_repeat, torch)
     log(f"[total] {time.perf_counter() - t_start:.1f} s wall, build included")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

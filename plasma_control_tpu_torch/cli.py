@@ -4,7 +4,7 @@ The counterpart of :mod:`plasma_control_tpu.cli` for the port's entry points
 (``run_wo_oc``, ``run_feedback``, ``run_mpc``, ``run_lqr``, and through
 :mod:`.cli_rl` ``run_ddpg``, ``run_ppo``, ``run_sac``): the same flags,
 defaults and choices (``base_parser``, ``add_control_args``,
-``add_mpc_args``, and the resume flags the JAX scripts declare), the same
+``add_mpc_args``, and the segmented-resume flags), the same
 functions that build the configs, the cost traces and the data dump of
 ``run_and_save``. The JAX package's ``run_and_save`` also draws the
 reference's plot set; that waits for the port's ``viz`` slice, so here it
@@ -22,9 +22,9 @@ import torch
 
 from .config import ControlConfig, MPCConfig, SimConfig
 
-__all__ = ["base_parser", "add_control_args", "add_mpc_args", "add_resume_args", "reject_resume",
-           "build_sim_config", "build_control_config", "build_mpc_config", "compute_cost_traces",
-           "high_indices", "run_and_save"]
+__all__ = ["base_parser", "add_control_args", "add_mpc_args", "add_resume_args", "build_sim_config",
+           "build_control_config", "build_mpc_config", "compute_cost_traces", "high_indices",
+           "run_and_save"]
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -126,20 +126,11 @@ def add_mpc_args(p: argparse.ArgumentParser):
 
 def add_resume_args(p: argparse.ArgumentParser,
                     every_help: str = "steps between full-state checkpoints (0 = off)"):
-    """The JAX scripts' segmented-resume flags; :func:`reject_resume` refuses
-    them until ``io/resume`` is ported."""
-    p.add_argument("--checkpoint_every", type=int, default=0,
-                   help=every_help + "; not ported yet (io/resume)")
+    """The JAX scripts' segmented-resume flags (:mod:`.io.resume`)."""
+    p.add_argument("--checkpoint_every", type=int, default=0, help=every_help)
     p.add_argument("--checkpoint_path", type=str, default=None)
     p.add_argument("--no_resume", action="store_true", help="ignore an existing checkpoint")
     return p
-
-
-def reject_resume(args: dict) -> None:
-    """Raise before any work if a resume flag is set."""
-    if args["checkpoint_every"] or args["checkpoint_path"] or args["no_resume"]:
-        raise NotImplementedError("--checkpoint_every / --checkpoint_path / --no_resume: "
-                                  "segmented resume (io/resume) is not ported to PyTorch yet")
 
 
 def build_sim_config(args: dict) -> SimConfig:

@@ -7,9 +7,12 @@ the same weight files (``<save_file>/<simcase>/<algo>-control/<algo>_best``
 and ``_last.msgpack``, flax's layout), the same evaluation from the seeded
 state and the same ``run_and_save`` tag. The JAX package plots the loss and
 reward curves; here they go into the data file's ``history`` group (the
-viz slice is not ported). The training-state checkpoint flags parse as in
-the JAX scripts and raise ``NotImplementedError`` before any work
-(``io/resume`` is not ported).
+viz slice is not ported). With ``--optimize``, ``--checkpoint_every`` or
+``--checkpoint_path`` alone turns on the full training-state checkpoint
+(:mod:`.io.resume`): every ``--checkpoint_every`` episodes (default 10)
+into ``--checkpoint_path`` (default
+``<save_file>/<simcase>/<algo>-control/train_ckpt``), resumed from unless
+``--no_resume``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import os
 
 import torch
 
-from .cli import add_resume_args, compute_cost_traces, high_indices, reject_resume, run_and_save
+from .cli import add_resume_args, compute_cost_traces, high_indices, run_and_save
 from .config import ControlConfig, SimConfig
 from .control.actuator import make_actuator
 from .control.evaluate import policy_rollout
@@ -68,7 +71,6 @@ def run_rl(algo: str, args: dict, cfg: SimConfig, ctrl: ControlConfig, hp, devic
     """Train (``--optimize``) or load the best weights, then evaluate the
     policy closed-loop on ``device`` and save the run under
     ``<algo>-control``."""
-    reject_resume(args)
     tag = f"{algo}-control"
     grid = make_grid(cfg.n_mesh, cfg.length, device=device)
     actuator = make_actuator(cfg.length, cfg.n_mesh, ctrl.max_mode,
@@ -83,6 +85,12 @@ def run_rl(algo: str, args: dict, cfg: SimConfig, ctrl: ControlConfig, hp, devic
     history = None
     if args.get("optimize"):
         kw = dict(num_episodes=args.get("num_episode"), verbose=args.get("verbose", 10))
+        # either flag alone turns the full training-state checkpoint on (a
+        # bare --checkpoint_path resumes, at the default cadence of 10)
+        if args.get("checkpoint_every") or args.get("checkpoint_path"):
+            kw.update(ckpt_path=args.get("checkpoint_path") or os.path.join(ckpt_dir, "train_ckpt"),
+                      ckpt_every=args.get("checkpoint_every") or 10,
+                      resume=not args.get("no_resume"))
         if algo == "ddpg":
             kw.update(save_best=best_path)  # periodic persistence
         ts, best_params, history = train(cfg, ctrl, hp, grid, actuator, gen, **kw)

@@ -398,14 +398,22 @@ def knot_noise(gen, n_candidates, horizon, dim, n_knots, dtype=torch.float32, de
     return out / torch.sqrt((1.0 - f) ** 2 + f**2)
 
 
+_AR1 = {}
+
+
 def ar1_noise(eps: torch.Tensor, beta: float) -> torch.Tensor:
     """(K, H, D) white noise coloured AR(1) along the horizon:
     ``out_0 = eps_0``, ``out_t = beta out_{t-1} + sqrt(1 - beta^2) eps_t``, so
-    every step keeps unit variance. ``beta <= 0`` returns ``eps``."""
+    every step keeps unit variance. ``beta <= 0`` returns ``eps``. The two
+    coefficients are device tensors made at the first call for each beta,
+    dtype and device, so that a captured step copies nothing from the host."""
     if beta <= 0.0:
         return eps
-    b = torch.tensor(beta, dtype=eps.dtype, device=eps.device)
-    scale = torch.sqrt(1.0 - b**2)
+    key = (float(beta), eps.dtype, str(eps.device))
+    if key not in _AR1:
+        b = torch.tensor(beta, dtype=eps.dtype, device=eps.device)
+        _AR1[key] = (b, torch.sqrt(1.0 - b**2))
+    b, scale = _AR1[key]
     out = [eps[:, 0]]
     for t in range(1, eps.shape[1]):
         out.append(b * out[-1] + scale * eps[:, t])

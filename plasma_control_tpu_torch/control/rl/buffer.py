@@ -7,6 +7,8 @@ never leaves the card. The pointer and the filled count are host integers
 uniform over the filled region, with replacement; :meth:`draw_indices`
 draws the indices from a ``torch.Generator`` and :meth:`sample` takes any
 indices, so a test can hand JAX's ``randint`` draws across.
+:meth:`ReplayBuffer.state_dict` holds only the filled rows (a full DDPG
+buffer is 8 GB on the card).
 """
 
 from __future__ import annotations
@@ -34,8 +36,37 @@ class ReplayBuffer:
         self.ptr = 0  # next write slot
         self.size = 0  # filled count
 
+    _NAMES = ("state", "action", "next_state", "reward", "done", "action_bc")
+
     def fields(self):
         return (self.state, self.action, self.next_state, self.reward, self.done, self.action_bc)
+
+    def state_dict(self) -> dict:
+        """The filled rows of each field (views, not copies), the pointer and
+        the filled count. Rows fill from 0 and the ring wraps only once
+        full, so the filled rows are always ``[0, size)``."""
+        return {"fields": {k: t[: self.size] for k, t in zip(self._NAMES, self.fields())},
+                "ptr": self.ptr, "size": self.size}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` in place; raises ``ValueError`` if it
+        does not fit this buffer."""
+        size, ptr = int(state["size"]), int(state["ptr"])
+        if not (0 <= size <= self.capacity and 0 <= ptr < self.capacity):
+            raise ValueError(f"replay buffer state of {size} rows at {ptr}, capacity "
+                             f"{self.capacity}")
+        fields = state["fields"]
+        if set(fields) != set(self._NAMES):
+            raise ValueError(f"replay buffer state holds {sorted(fields)}")
+        for name, dst in zip(self._NAMES, self.fields()):
+            src = fields[name]
+            if tuple(src.shape) != (size,) + tuple(dst.shape[1:]) or src.dtype != dst.dtype:
+                raise ValueError(f"replay buffer field {name}: {src.dtype} {tuple(src.shape)}, "
+                                 f"expected {dst.dtype} {(size,) + tuple(dst.shape[1:])}")
+        for name, dst in zip(self._NAMES, self.fields()):
+            dst[:size].copy_(fields[name])
+        self.ptr, self.size = ptr, size
 
     def push(self, state, action, next_state, reward, done, action_bc: Optional[torch.Tensor] = None):
         """Write one transition at the pointer (a missing ``action_bc`` is

@@ -250,11 +250,17 @@ def run_episode(ts: DDPGState, buf: ReplayBuffer, state0: PlasmaState, reward_fe
 def train(cfg: SimConfig, ctrl: ControlConfig, hp: DDPGConfig, grid: Grid,
           actuator: FourierActuator, generator: torch.Generator,
           num_episodes: Optional[int] = None, verbose: int = 10, save_best: Optional[str] = None,
-          save_every: int = 10):
+          save_every: int = 10, ckpt_path: Optional[str] = None, ckpt_every: int = 10,
+          resume: bool = True):
     """Offline expert BC, then online episodes, on the grid's device (the
     generator must live there). ``save_best`` writes the best actor every
-    ``save_every`` episodes. Returns (ts, best actor params as a host flax
-    tree, history dict of per-episode arrays)."""
+    ``save_every`` episodes. With ``ckpt_path`` the complete training state
+    (networks, optimiser moments, replay buffer, generator state, history)
+    is checkpointed every ``ckpt_every`` episodes and after the last
+    (:func:`...io.resume.save_train_checkpoint`), and with ``resume`` a run
+    continues from a checkpoint found there, skipping the offline stage, as
+    the uninterrupted run would have. Returns (ts, best actor params as a
+    host flax tree, history dict of per-episode arrays)."""
     dev = grid.e_op.device
     state0 = init_state(cfg, generator, device=dev)
     ts = make_ddpg(cfg, ctrl, hp, generator)
@@ -262,20 +268,33 @@ def train(cfg: SimConfig, ctrl: ControlConfig, hp: DDPGConfig, grid: Grid,
     reward = Reward(torch.cat([state0.x, state0.v]), ctrl.reward_n_mesh, cfg.length, ctrl.vmin,
                     ctrl.vmax, cfg.n0, hp.alpha, hp.beta, ctrl.n_actions)
     buf = ReplayBuffer(hp.capacity, 2 * cfg.n_particles, ctrl.n_actions, device=dev)
-
-    # offline stage: expert rollout + reward-weighted BC
-    fb = feedback_rollout(state0, grid, cfg, ctrl, actuator, record_snapshots=True, n_steps=n_steps)
-    states_bc = torch.cat([fb.xs[:-1], fb.vs[:-1]], dim=1)  # (T, 2N)
-    actions_bc = torch.cat([fb.coeff_cos, fb.coeff_sin], dim=1)  # (T, A)
-    reward_fn = reward.reward_fn(hp.reward_shape)
-    rewards_bc = torch.stack([reward_fn(s, a) for s, a in zip(states_bc, actions_bc)])
-    noise = torch.randn((hp.n_bc_epochs,) + actions_bc.shape, generator=generator, device=dev)
-    behavior_cloning(ts, states_bc, actions_bc, rewards_bc, noise, hp)
-    best_reward, best_params = None, actor_params_to_numpy(ts.actor)
-
     episodes = num_episodes if num_episodes is not None else hp.num_episodes
     hist = {"reward": [], "q1_loss": [], "q2_loss": [], "p_loss": []}
-    for ep in range(episodes):
+
+    # a restored checkpoint overwrites the cloned actor, so the offline stage
+    # is skipped on resume
+    ck = None
+    if ckpt_path and resume:
+        from ...io.resume import restore_train_checkpoint
+
+        ck = restore_train_checkpoint(ckpt_path, ts, buf, generator)
+    if ck is not None:
+        ep0, hist = ck["ep_done"], ck["hist"]
+        best_reward, best_params = ck["best_reward"], ck["best_params"]
+        print(f"# resumed DDPG training from {ckpt_path} at episode {ep0}")
+    else:
+        # offline stage: expert rollout + reward-weighted BC
+        fb = feedback_rollout(state0, grid, cfg, ctrl, actuator, record_snapshots=True,
+                              n_steps=n_steps)
+        states_bc = torch.cat([fb.xs[:-1], fb.vs[:-1]], dim=1)  # (T, 2N)
+        actions_bc = torch.cat([fb.coeff_cos, fb.coeff_sin], dim=1)  # (T, A)
+        reward_fn = reward.reward_fn(hp.reward_shape)
+        rewards_bc = torch.stack([reward_fn(s, a) for s, a in zip(states_bc, actions_bc)])
+        noise = torch.randn((hp.n_bc_epochs,) + actions_bc.shape, generator=generator, device=dev)
+        behavior_cloning(ts, states_bc, actions_bc, rewards_bc, noise, hp)
+        ep0, best_reward, best_params = 0, None, actor_params_to_numpy(ts.actor)
+
+    for ep in range(ep0, episodes):
         ep_state = init_state(cfg, generator, device=dev)  # env.reinit(): full resample
         m = run_episode(ts, buf, ep_state, reward.feq, generator, grid, actuator, cfg, ctrl, hp,
                         n_steps)
@@ -287,6 +306,11 @@ def train(cfg: SimConfig, ctrl: ControlConfig, hp: DDPGConfig, grid: Grid,
             from ...io.checkpoint import save_params
 
             save_params(save_best, best_params)
+        if ckpt_path and ((ep + 1) % ckpt_every == 0 or ep == episodes - 1):
+            from ...io.resume import save_train_checkpoint
+
+            save_train_checkpoint(ckpt_path, ts, buf, generator, ep + 1, hist, best_reward,
+                                  best_params)
         if verbose and ep % verbose == 0:
             print(f"| episode:{ep + 1} | reward:{m['reward_mean']:.4f} | "
                   f"p_loss:{m['p_loss']:.4f}")

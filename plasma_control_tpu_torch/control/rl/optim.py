@@ -59,6 +59,22 @@ class Adam:
         for p, u in zip(self.params, self.updates(grads)):
             p.add_(u)
 
+    def state_dict(self) -> dict:
+        """The moments (the tensors themselves, not copies) and the step
+        count."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` into the moments in place."""
+        if len(state["mu"]) != len(self.mu) or len(state["nu"]) != len(self.nu):
+            raise ValueError(f"Adam state of {len(state['mu'])} moments, expected {len(self.mu)}")
+        for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            if dst.shape != src.shape:
+                raise ValueError(f"Adam moment {tuple(src.shape)}, expected {tuple(dst.shape)}")
+            dst.copy_(src)
+        self.count = int(state["count"])
+
 
 def grads_of(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """d loss / d params, zeros for a parameter the loss does not reach (as

@@ -152,17 +152,25 @@ def run_episode(ts: PPOState, state0: PlasmaState, reward_feq: torch.Tensor,
 
 def train(cfg: SimConfig, ctrl: ControlConfig, hp: PPOConfig, grid: Grid,
           actuator: FourierActuator, generator: torch.Generator,
-          num_episodes: Optional[int] = None, verbose: int = 10):
+          num_episodes: Optional[int] = None, verbose: int = 10, ckpt_path: Optional[str] = None,
+          ckpt_every: int = 10, resume: bool = True):
     """The anti-BC warm start (``anti_bc_warmstart``), then online episodes on
-    the grid's device. Returns (ts, best policy params as a host flax tree,
-    history dict of per-episode arrays)."""
+    the grid's device. ``ckpt_path``, ``ckpt_every`` and ``resume`` as in
+    :func:`.ddpg.train` (PPO is on-policy: no buffer to keep); a resumed run
+    skips the warm start. Returns (ts, best policy params as a host flax
+    tree, history dict of per-episode arrays)."""
     dev = grid.e_op.device
     state0 = init_state(cfg, generator, device=dev)
     ts = make_ppo(cfg, ctrl, hp, generator)
     n_steps = cfg.n_steps
     reward = Reward(torch.cat([state0.x, state0.v]), ctrl.reward_n_mesh, cfg.length, ctrl.vmin,
                     ctrl.vmax, cfg.n0, hp.alpha, hp.beta, ctrl.n_actions)
-    if hp.anti_bc_warmstart:
+    ck = None
+    if ckpt_path and resume:
+        from ...io.resume import restore_train_checkpoint
+
+        ck = restore_train_checkpoint(ckpt_path, ts, None, generator)
+    if ck is None and hp.anti_bc_warmstart:
         # a single -sum(l2) step away from the expert, as the reference takes it
         fb = feedback_rollout(state0, grid, cfg, ctrl, actuator, record_snapshots=True,
                               n_steps=n_steps)
@@ -175,14 +183,23 @@ def train(cfg: SimConfig, ctrl: ControlConfig, hp: PPOConfig, grid: Grid,
 
     episodes = num_episodes if num_episodes is not None else hp.num_episodes
     hist = {"reward": [], "loss": []}
-    best_reward, best_params = None, actor_params_to_numpy(ts.policy)
-    for ep in range(episodes):
+    ep0, best_reward, best_params = 0, None, actor_params_to_numpy(ts.policy)
+    if ck is not None:
+        ep0, hist = ck["ep_done"], ck["hist"]
+        best_reward, best_params = ck["best_reward"], ck["best_params"]
+        print(f"# resumed PPO training from {ckpt_path} at episode {ep0}")
+    for ep in range(ep0, episodes):
         ep_state = init_state(cfg, generator, device=dev)
         m = run_episode(ts, ep_state, reward.feq, generator, grid, actuator, cfg, ctrl, hp, n_steps)
         hist["reward"].append(m["reward_mean"])
         hist["loss"].append(m["loss"])
         if best_reward is None or m["reward_mean"] > best_reward:
             best_reward, best_params = m["reward_mean"], actor_params_to_numpy(ts.policy)
+        if ckpt_path and ((ep + 1) % ckpt_every == 0 or ep == episodes - 1):
+            from ...io.resume import save_train_checkpoint
+
+            save_train_checkpoint(ckpt_path, ts, None, generator, ep + 1, hist, best_reward,
+                                  best_params)
         if verbose and ep % verbose == 0:
             print(f"| episode:{ep + 1} | loss:{m['loss']:.4f} | reward:{m['reward_mean']:.4f}")
     return ts, best_params, {k: np.asarray(v) for k, v in hist.items()}

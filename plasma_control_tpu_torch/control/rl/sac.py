@@ -151,9 +151,12 @@ def run_episode(ts: SACState, buf: ReplayBuffer, state0: PlasmaState, reward_feq
 
 def train(cfg: SimConfig, ctrl: ControlConfig, hp: SACConfig, grid: Grid,
           actuator: FourierActuator, generator: torch.Generator,
-          num_episodes: Optional[int] = None, verbose: int = 10):
-    """Online-only training on the grid's device. Returns (ts, best actor
-    params as a host flax tree, history dict of per-episode arrays)."""
+          num_episodes: Optional[int] = None, verbose: int = 10, ckpt_path: Optional[str] = None,
+          ckpt_every: int = 10, resume: bool = True):
+    """Online-only training on the grid's device. ``ckpt_path``,
+    ``ckpt_every`` and ``resume`` as in :func:`.ddpg.train` (the checkpoint
+    also holds the learned temperature). Returns (ts, best actor params as a
+    host flax tree, history dict of per-episode arrays)."""
     dev = grid.e_op.device
     state0 = init_state(cfg, generator, device=dev)
     ts = make_sac(cfg, ctrl, hp, generator)
@@ -163,8 +166,16 @@ def train(cfg: SimConfig, ctrl: ControlConfig, hp: SACConfig, grid: Grid,
     buf = ReplayBuffer(hp.capacity, 2 * cfg.n_particles, ctrl.n_actions, device=dev)
     episodes = num_episodes if num_episodes is not None else hp.num_episodes
     hist = {"reward": [], "q1_loss": [], "q2_loss": [], "p_loss": []}
-    best_reward, best_params = None, actor_params_to_numpy(ts.actor)
-    for ep in range(episodes):
+    ep0, best_reward, best_params = 0, None, actor_params_to_numpy(ts.actor)
+    if ckpt_path and resume:
+        from ...io.resume import restore_train_checkpoint
+
+        ck = restore_train_checkpoint(ckpt_path, ts, buf, generator)
+        if ck is not None:
+            ep0, hist = ck["ep_done"], ck["hist"]
+            best_reward, best_params = ck["best_reward"], ck["best_params"]
+            print(f"# resumed SAC training from {ckpt_path} at episode {ep0}")
+    for ep in range(ep0, episodes):
         ep_state = init_state(cfg, generator, device=dev)
         m = run_episode(ts, buf, ep_state, reward.feq, generator, grid, actuator, cfg, ctrl, hp,
                         n_steps)
@@ -172,6 +183,11 @@ def train(cfg: SimConfig, ctrl: ControlConfig, hp: SACConfig, grid: Grid,
             hist[k].append(m["reward_mean" if k == "reward" else k])
         if m["n_updates"] > 0 and (best_reward is None or m["reward_mean"] > best_reward):
             best_reward, best_params = m["reward_mean"], actor_params_to_numpy(ts.actor)
+        if ckpt_path and ((ep + 1) % ckpt_every == 0 or ep == episodes - 1):
+            from ...io.resume import save_train_checkpoint
+
+            save_train_checkpoint(ckpt_path, ts, buf, generator, ep + 1, hist, best_reward,
+                                  best_params)
         if verbose and ep % verbose == 0:
             print(f"| episode:{ep + 1} | p_loss:{m['p_loss']:.4f} | reward:{m['reward_mean']:.4f}")
     return ts, best_params, {k: np.asarray(v) for k, v in hist.items()}

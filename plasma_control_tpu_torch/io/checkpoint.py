@@ -1,7 +1,20 @@
-"""Actor and critic weight files in flax's msgpack layout.
+"""Full-state checkpoints, and actor and critic weight files in flax's
+msgpack layout.
 
-The counterpart of :func:`plasma_control_tpu.io.checkpoint.save_params` /
-``load_params``: a params tree written by ``flax.serialization.to_bytes``,
+:func:`save_checkpoint` / :func:`restore_checkpoint` are the counterparts of
+the JAX package's orbax pair: a nested dict (or list) of tensors, numpy
+arrays, Python scalars and ``torch.Generator`` s (stored as their states),
+in the port's own format (``torch.save`` of the tree with every tensor moved
+to the host),
+written to a temporary name and renamed into place, so a preempted write
+never leaves a partial checkpoint. ``like`` pins the structure, shapes and
+dtypes at restore and puts each tensor on its device. The orbax checkpoints
+of the JAX package are not read here: their on-disk format is
+tensorstore's.
+
+:func:`save_params` / :func:`load_params` are the counterparts of
+:func:`plasma_control_tpu.io.checkpoint.save_params` / ``load_params``: a
+params tree written by ``flax.serialization.to_bytes``,
 read and written here with no flax and no ``msgpack`` package. The codec
 covers what flax emits for a params tree: maps with string keys, strings,
 binary, arrays, integers, floats, nil, booleans, and the extension types
@@ -10,8 +23,7 @@ msgpack of ``(shape, dtype name, C-order bytes)``. A file this module writes
 is byte for byte what flax's ``to_bytes`` writes for the same tree (both keep
 the tree's key order), so either package loads the other's files. (flax
 splits arrays over 1 GiB into chunks; no weight file comes near that, and
-:func:`packb` refuses such an array.) The orbax training-state checkpoints
-of the JAX package are not ported.
+:func:`packb` refuses such an array.)
 """
 
 from __future__ import annotations
@@ -21,8 +33,10 @@ import struct
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["packb", "unpackb", "save_params", "load_params"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "conform", "packb", "unpackb",
+           "save_params", "load_params"]
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 _MAX_ARRAY_BYTES = 2**30  # flax chunks arrays above this size
@@ -221,3 +235,86 @@ def load_params(path: str, like: Optional[Any] = None) -> Any:
 
     like.load_state_dict(actor_params_from_numpy(tree, like))
     return like
+
+
+_NUMPY = "__ndarray__"  # marks a numpy leaf, stored as a host tensor
+
+
+def _to_host(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_host(v) for v in tree]
+    if isinstance(tree, torch.Generator):
+        return tree.get_state()
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, np.ndarray):
+        return {_NUMPY: torch.from_numpy(np.ascontiguousarray(tree).copy())}
+    if isinstance(tree, np.generic):
+        return tree.item()
+    if tree is None or isinstance(tree, (bool, int, float, str)):
+        return tree
+    raise TypeError(f"a checkpoint cannot hold a {type(tree).__name__}")
+
+
+def _from_host(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        if set(tree) == {_NUMPY}:
+            return tree[_NUMPY].numpy()
+        return {k: _from_host(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_from_host(v) for v in tree]
+    return tree
+
+
+def save_checkpoint(path: str, tree: Any) -> None:
+    """Write ``tree`` to the file ``path`` (its directory is made): to
+    ``path + ".tmp"`` first, then ``os.replace``."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(_to_host(tree), tmp)
+    os.replace(tmp, path)
+
+
+def conform(tree: Any, like: Any, where: str = "") -> Any:
+    """``tree`` (as read from a checkpoint) checked against ``like``: the same
+    dict keys and list lengths, each tensor or array of the same shape and
+    dtype (a tensor then moved to ``like``'s device; a generator's state is
+    a uint8 tensor of its kind's length), each scalar of the same kind.
+    Raises ``ValueError`` naming the first leaf that differs."""
+    name = where or "the root"
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"checkpoint leaf {name}: keys {got}, expected {sorted(like)}")
+        return {k: conform(tree[k], like[k], f"{where}/{k}") for k in like}
+    if isinstance(like, (list, tuple)):
+        if not isinstance(tree, list) or len(tree) != len(like):
+            raise ValueError(f"checkpoint leaf {name}: expected a list of {len(like)}")
+        return [conform(t, l, f"{where}[{i}]") for i, (t, l) in enumerate(zip(tree, like))]
+    if isinstance(like, (torch.Tensor, np.ndarray)):
+        is_np = isinstance(like, np.ndarray)
+        if not isinstance(tree, np.ndarray if is_np else torch.Tensor):
+            raise ValueError(f"checkpoint leaf {name}: {type(tree).__name__}, expected "
+                             f"{type(like).__name__}")
+        if tuple(tree.shape) != tuple(like.shape) or tree.dtype != like.dtype:
+            raise ValueError(f"checkpoint leaf {name}: {tree.dtype} {tuple(tree.shape)}, "
+                             f"expected {like.dtype} {tuple(like.shape)}")
+        return tree if is_np else tree.to(like.device)
+    kinds = (bool,) if isinstance(like, bool) else (int,) if isinstance(like, int) else (
+        (int, float) if isinstance(like, float) else (type(like),))
+    if isinstance(tree, bool) != isinstance(like, bool) or not isinstance(tree, kinds):
+        raise ValueError(f"checkpoint leaf {name}: {type(tree).__name__}, expected "
+                         f"{type(like).__name__}")
+    return tree
+
+
+def restore_checkpoint(path: str, like: Optional[Any] = None) -> Any:
+    """The tree :func:`save_checkpoint` wrote (tensors on the host, generator
+    states as uint8 tensors), or with ``like`` that tree passed through
+    :func:`conform`. The file is read with ``torch.load(weights_only=True)``:
+    tensors, containers and scalars only, no code."""
+    tree = _from_host(torch.load(os.path.abspath(path), map_location="cpu", weights_only=True))
+    return tree if like is None else conform(tree, like)

@@ -10,13 +10,23 @@ on the card, run the closed loop (:func:`..control.mpc.mpc_rollout`), replay
 the applied drive with snapshots, and write the cost traces and the run data
 (``--is_save``). ``--plan_particles`` without ``--plan_correction twin``
 warns at t=0 when the plan subsample's noise floor rivals the coherent field.
-``--aot``, ``--save_aot`` and the resume flags (``--checkpoint_every``,
-``--checkpoint_path``, ``--no_resume``) parse as in the JAX package and raise
-``NotImplementedError``: the ``io/aot`` and ``io/resume`` slices are not
-ported yet.
+
+``--checkpoint_every S`` runs the loop in resumable segments of S steps
+(:func:`.io.resume.resumable_mpc_rollout`), checkpointed into
+``--checkpoint_path`` (default ``checkpoints/<simcase>-mpc``) and resumed
+from there unless ``--no_resume``; the replay then takes the applied
+coefficients of the whole run, the interrupted part included.
+``--save_aot PATH`` writes the control-step artifact of these flags and
+exits: a ``.pkl`` path the compiled one (the kernel library inside),
+anything else the portable JSON (:mod:`.io.aot`). ``--aot PATH`` runs the
+closed loop as a host loop over that artifact's step, one CUDA graph replay
+per control step on the card (eagerly when the caller asks for the CPU);
+the artifact must describe these flags' step.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -30,7 +40,6 @@ from .cli import (
     build_sim_config,
     compute_cost_traces,
     high_indices,
-    reject_resume,
     run_and_save,
 )
 from .control.actuator import make_actuator
@@ -46,16 +55,15 @@ def main(argv=None, device="cuda") -> None:
         "PIC simulation with receding-horizon MPC E-field control"))),
         every_help="env steps between full controller-state checkpoints (0 = off)")
     p.add_argument("--aot", type=str, default=None, metavar="ARTIFACT",
-                   help="run the closed loop through a saved control-step artifact; not "
-                        "ported yet (io/aot)")
+                   help="run the closed loop through a saved control-step artifact "
+                        "(io/aot.py: portable JSON from export_plan(kind='control_step'), or "
+                        ".pkl from save_compiled_plan), one CUDA graph replay per control "
+                        "step. The artifact must describe these flags' step.")
     p.add_argument("--save_aot", type=str, default=None, metavar="PATH",
-                   help="build and save the control-step artifact, then exit; not ported "
-                        "yet (io/aot)")
+                   help="build and save the control-step artifact for this configuration "
+                        "and exit (.pkl -> compiled, with the kernel library; else portable "
+                        "JSON)")
     args = vars(p.parse_args(argv))
-    if args["aot"] or args["save_aot"]:
-        raise NotImplementedError("--aot / --save_aot: the control-step artifact slice "
-                                  "(io/aot) is not ported to PyTorch yet")
-    reject_resume(args)
     cfg = build_sim_config(args)
     ctrl = build_control_config(args)
     mpc = build_mpc_config(args)
@@ -64,6 +72,24 @@ def main(argv=None, device="cuda") -> None:
     actuator = make_actuator(cfg.length, cfg.n_mesh, ctrl.max_mode,
                              endpoint_grid=ctrl.endpoint_grid, device=device)
     state = init_state(cfg, torch.Generator(device=device).manual_seed(cfg.seed), device=device)
+
+    if args["save_aot"]:
+        from .io.aot import export_plan, save_compiled_plan
+
+        t0 = time.perf_counter()
+        if args["save_aot"].endswith(".pkl"):
+            save_compiled_plan(args["save_aot"], grid, cfg, ctrl, mpc, actuator,
+                               kind="control_step")
+        else:
+            export_plan(grid, cfg, ctrl, mpc, actuator, path=args["save_aot"],
+                        kind="control_step")
+        print(f"# AOT control-step artifact written to {args['save_aot']} "
+              f"({time.perf_counter() - t0:.1f}s)")
+        return
+
+    if args["aot"] and args["checkpoint_every"]:
+        raise SystemExit("--aot runs a host loop over a fixed artifact; use the "
+                         "traced path for --checkpoint_every segmented resume")
 
     if _plan_frac(cfg, mpc) < 1.0 and mpc.plan_correction == "none":
         # with --plan_correction twin the subsampled cost is noise-corrected
@@ -85,9 +111,33 @@ def main(argv=None, device="cuda") -> None:
                 "(drop --plan_particles) for quiet/saturated plasmas."
             )
 
-    out = mpc_rollout(state, grid, cfg, ctrl, mpc, actuator,
-                      torch.Generator(device=device).manual_seed(cfg.seed + 1))
-    coeffs = out.coeffs  # (T, 2K)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    if args["aot"]:
+        from .io.aot import aot_mpc_rollout, check_plan, load_compiled_plan, load_plan
+
+        t0 = time.perf_counter()
+        loader = load_compiled_plan if args["aot"].endswith(".pkl") else load_plan
+        ctrl_step = loader(args["aot"], device=device)
+        check_plan(ctrl_step, cfg, ctrl, mpc)
+        print(f"# AOT artifact loaded in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        coeffs = aot_mpc_rollout(ctrl_step, state, generator, cfg.n_steps, mpc.horizon,
+                                 ctrl.n_actions).coeffs
+        if coeffs.is_cuda:
+            torch.cuda.synchronize(coeffs.device)
+        print(f"# {cfg.n_steps} control steps through the artifact in "
+              f"{time.perf_counter() - t0:.2f}s (the first captures the step on the card)")
+    elif args["checkpoint_every"]:
+        from .io.resume import resumable_mpc_rollout
+
+        _, traces = resumable_mpc_rollout(
+            state, grid, cfg, ctrl, mpc, actuator, generator,
+            ckpt_path=args["checkpoint_path"] or f"checkpoints/{args['simcase']}-mpc",
+            segment_steps=args["checkpoint_every"], resume=not args["no_resume"],
+        )
+        coeffs = torch.from_numpy(traces["coeffs_full"]).to(device)
+    else:
+        coeffs = mpc_rollout(state, grid, cfg, ctrl, mpc, actuator, generator).coeffs  # (T, 2K)
 
     # re-play the recorded control sequence to collect snapshots
     replay = rollout(state, grid, cfg, e_external_traj=actuator.compute_e_packed(coeffs),

@@ -199,12 +199,57 @@ def test_run_mpc_main_writes_a_run(tmp_path, capsys):
     np.testing.assert_array_equal(run["snapshot"][:256, 0], st.x.numpy())
 
 
+def _mpc_run(out, argv):
+    run_mpc.main(SMALL + argv + ["--is_save", "--save_file", str(out)], device="cpu")
+    return load_run(os.path.join(str(out), "two-stream", "mpc-control", "data.npz"))
+
+
+def _same_run(a, b):
+    for key in ("snapshot", "E", "PE", "coeff_cos", "coeff_sin"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
 @pytest.mark.parametrize("flags", [["--aot", "a.pkl"], ["--save_aot", "a.stablehlo"],
                                    ["--checkpoint_every", "10"], ["--checkpoint_path", "ck"],
                                    ["--no_resume"]],
                          ids=["aot", "save_aot", "resume", "checkpoint_path", "no_resume"])
-def test_unported_run_mpc_flags_raise(flags, tmp_path):
-    """They parse as in the JAX script and raise before any work."""
-    with pytest.raises(NotImplementedError):
-        run_mpc.main(SMALL + flags + ["--save_file", str(tmp_path)], device="cpu")
-    assert not os.listdir(tmp_path)
+def test_run_mpc_resume_and_aot_flags(flags, tmp_path, monkeypatch, capsys):
+    """Each flag run to its result (JAX's semantics): ``--aot`` with
+    ``--checkpoint_every`` exits before any work; ``--save_aot`` writes the
+    portable artifact and exits; ``--checkpoint_every`` (segments of 2 here)
+    checkpoints into the default ``checkpoints/<simcase>-mpc`` and saves the
+    unsegmented run's data bitwise, and a resumed run replays the whole
+    drive; a bare ``--checkpoint_path`` starts no segmented run;
+    ``--no_resume`` ignores a checkpoint of a shorter run."""
+    monkeypatch.chdir(tmp_path)
+    if flags[0] == "--aot":
+        with pytest.raises(SystemExit, match="--checkpoint_every segmented resume"):
+            run_mpc.main(SMALL + flags + ["--checkpoint_every", "2", "--save_file", "out"],
+                         device="cpu")
+        assert not os.listdir(tmp_path)
+        return
+    if flags[0] == "--save_aot":
+        run_mpc.main(SMALL + flags + ["--save_file", "out"], device="cpu")
+        assert os.listdir(tmp_path) == ["a.stablehlo"]
+        step = __import__("plasma_control_tpu_torch.io.aot", fromlist=["aot"]).load_plan(
+            "a.stablehlo", device="cpu")
+        assert step.kind == "control_step" and step.fingerprint["shapes"]["x"] == [256]
+        return
+    plain = _mpc_run(tmp_path / "plain", [])
+    if flags[0] == "--checkpoint_every":
+        got = _mpc_run(tmp_path / "seg", ["--checkpoint_every", "2"])
+        assert os.path.exists("checkpoints/two-stream-mpc")
+        _same_run(got, plain)
+        # cut at step 2, then resumed: the replay takes the whole drive
+        _mpc_run(tmp_path / "cut", ["--checkpoint_every", "2", "--checkpoint_path", "ck2",
+                                    "--t_max", "0.2"])
+        _same_run(_mpc_run(tmp_path / "res", ["--checkpoint_every", "2", "--checkpoint_path",
+                                              "ck2"]), plain)
+        assert "# resumed MPC from ck2 at step 2" in capsys.readouterr().out
+    elif flags[0] == "--checkpoint_path":
+        _same_run(_mpc_run(tmp_path / "p", flags), plain)
+        assert not os.path.exists("ck")
+    else:
+        _mpc_run(tmp_path / "cut", ["--checkpoint_every", "2", "--t_max", "0.2"])
+        _same_run(_mpc_run(tmp_path / "fresh", ["--checkpoint_every", "2"] + flags), plain)
+        assert "resumed" not in capsys.readouterr().out

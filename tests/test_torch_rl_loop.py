@@ -189,7 +189,32 @@ def test_run_dagger_evaluates_the_committed_actor(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [["--checkpoint_every", "10"], ["--checkpoint_path", "ck"],
                                    ["--no_resume"]], ids=["every", "path", "no_resume"])
 @pytest.mark.parametrize("name", ["ddpg", "ppo", "sac"])
-def test_resume_flags_raise(name, flags, tmp_path):
-    with pytest.raises(NotImplementedError):
-        SCRIPTS[name].main(TINY + flags + ["--save_file", str(tmp_path)], device="cpu")
-    assert not os.listdir(tmp_path)
+def test_resume_flags(name, flags, tmp_path, capsys):
+    """With ``--optimize``, as in the JAX scripts: ``--checkpoint_every``
+    checkpoints into ``<save_file>/<simcase>/<algo>-control/train_ckpt`` and
+    a longer run resumes from it; a bare ``--checkpoint_path`` turns the
+    checkpoint on at the cadence of 10 (two episodes: one save, after the
+    last); ``--no_resume`` trains afresh past an existing checkpoint."""
+    argv = TINY + TRAIN[name] + ["--save_file", str(tmp_path / "d")]
+    tag_dir = tmp_path / "d" / "two-stream" / f"{name}-control"
+    if flags[0] == "--checkpoint_every":
+        SCRIPTS[name].main(argv + ["--checkpoint_every", "1"], device="cpu")
+        ck = tag_dir / "train_ckpt"
+        assert int(np.load(ck / "meta.npz")["ep_done"]) == 2
+        SCRIPTS[name].main(argv[:argv.index("--num_episode") + 1] + ["3"]
+                           + argv[argv.index("--num_episode") + 2:]
+                           + ["--checkpoint_every", "1"], device="cpu")
+        assert "at episode 2" in capsys.readouterr().out
+        assert int(np.load(ck / "meta.npz")["ep_done"]) == 3
+    elif flags[0] == "--checkpoint_path":
+        ck = tmp_path / "ck"
+        SCRIPTS[name].main(argv + ["--checkpoint_path", str(ck)], device="cpu")
+        assert int(np.load(ck / "meta.npz")["ep_done"]) == 2
+        assert not (tag_dir / "train_ckpt").exists()
+        SCRIPTS[name].main(argv + ["--checkpoint_path", str(ck)], device="cpu")
+        assert "at episode 2" in capsys.readouterr().out
+    else:
+        SCRIPTS[name].main(argv + ["--checkpoint_every", "1"], device="cpu")
+        capsys.readouterr()
+        SCRIPTS[name].main(argv + ["--checkpoint_every", "1"] + flags, device="cpu")
+        assert "resumed" not in capsys.readouterr().out

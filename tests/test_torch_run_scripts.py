@@ -1,8 +1,8 @@
 """The port's uncontrolled, feedback and LQR entry points on CPU, at a tiny
 size: each takes its JAX script's flags, writes a run whose dict has the keys
 and shapes of the JAX package's ``build_run_dict`` for that script, starts
-from the seeded state, and raises ``NotImplementedError`` for the resume
-flags where the JAX script has them."""
+from the seeded state, and runs the segmented-resume flags where the JAX
+script has them."""
 
 import os
 import re
@@ -115,8 +115,39 @@ def test_feedback_run_holds_the_loop_traces(tmp_path):
 
 @pytest.mark.parametrize("flags", RESUME, ids=["every", "path", "no_resume"])
 @pytest.mark.parametrize("name", ["wo_oc", "feedback"])
-def test_resume_flags_raise(name, flags, tmp_path):
-    """They parse as in the JAX scripts and raise before any work."""
-    with pytest.raises(NotImplementedError):
-        SCRIPTS[name][0].main(TINY[:6] + flags + ["--save_file", str(tmp_path)], device="cpu")
-    assert not os.listdir(tmp_path)
+def test_resume_flags(name, flags, tmp_path, monkeypatch, capsys):
+    """As in the JAX scripts: ``--checkpoint_every`` (segments of 2 here)
+    checkpoints into ``checkpoints/<simcase>-<tag>`` and saves the
+    unsegmented run's data bitwise, and a run cut at step 2 resumes and
+    saves the remaining steps; a bare ``--checkpoint_path`` starts no
+    segmented run; ``--no_resume`` ignores a checkpoint of a shorter run."""
+    monkeypatch.chdir(tmp_path)
+    mod, tag = SCRIPTS[name]
+    argv = [a for a in _argv(name, tmp_path) if a not in ("--is_save", "--save_file",
+                                                          str(tmp_path / "d"))]
+
+    def run(out, extra):
+        mod.main(argv + extra + ["--is_save", "--save_file", out], device="cpu")
+        return load_run(os.path.join(out, "two-stream", tag, "data.npz"))
+
+    plain = run("plain", [])
+    keys = ("snapshot", "E", "PE") + (("coeff_cos", "coeff_sin") if name == "feedback" else ())
+    if flags[0] == "--checkpoint_every":
+        got = run("seg", ["--checkpoint_every", "2"])
+        assert os.path.exists(f"checkpoints/two-stream-{tag}")
+        run("cut", ["--checkpoint_every", "2", "--checkpoint_path", "ck2", "--t_max", "0.2"])
+        res = run("res", ["--checkpoint_every", "2", "--checkpoint_path", "ck2"])
+        assert f"# resumed {'feedback ' if name == 'feedback' else ''}from ck2 at step 2" in \
+            capsys.readouterr().out
+        # steps 3-5 only; the uncontrolled PE trace starts at step 0, feedback's at 1
+        np.testing.assert_array_equal(res["PE"], plain["PE"][3 if name == "wo_oc" else 2:])
+        np.testing.assert_array_equal(res["snapshot"], plain["snapshot"][:, 3:])
+    elif flags[0] == "--checkpoint_path":
+        got = run("p", flags)
+        assert not os.path.exists("ck")
+    else:
+        run("cut", ["--checkpoint_every", "2", "--t_max", "0.2"])
+        got = run("fresh", ["--checkpoint_every", "2"] + flags)
+        assert "resumed" not in capsys.readouterr().out
+    for key in keys:
+        np.testing.assert_array_equal(got[key], plain[key], err_msg=key)
