@@ -140,8 +140,9 @@ any failure exits non-zero:
       compiled artifact at the spectral slice's flags; a fresh
       ``python -m plasma_control_tpu_torch.run_mpc --aot`` from a copy of the
       package with an empty build directory runs each (the portable one
-      builds the kernels, the compiled one installs its library), both
-      equal to the eager run bitwise; wall times; a stale artifact refused;
+      builds the kernels, the compiled one, run with no nvcc to be found,
+      installs its library), both equal to the eager run bitwise; wall
+      times; a stale artifact refused;
 5. check one candidate block and a three-step closed loop on the card
    against the same computation on the CPU, where every wrapper runs its
    plain version: the spectral slice from its initial state; the grid slice
@@ -360,23 +361,18 @@ def queued_ms(torch, fn, reps: int = 10) -> float:
 PROFILER_WINDOWS = 8
 
 
-def device_ms(torch, fn, kernel: str | None, reps: int = 20) -> tuple[float, float]:
-    """(median device time in ms of the kernels whose name contains
-    ``kernel``, device ops per call) over ``reps`` calls of ``fn``, from a
-    profiler trace: kernels, copies and sets on the device. ``kernel=None``:
-    the mean device time of all of a call's kernels together. Each window
-    records ``reps`` calls after a warm-up step of ``reps`` calls whose
-    events are discarded, so that the tracer has started before the recorded
-    calls. A trace that still missed the window's device events (the
-    profiler drops a window now and then over the many this run opens) is
-    taken again, up to ``PROFILER_WINDOWS`` times, each miss logged; then the
-    run fails."""
+def trace_window(torch, fn, reps: int, accept, what: str):
+    """``accept(events)`` of the first profiler window it accepts: the device
+    events (kernels, copies, sets) of ``reps`` calls of ``fn``, recorded
+    after a discarded warm-up window of ``reps`` calls, so that the tracer
+    has started before the recorded calls. ``accept`` returns None for a
+    window that missed device events (the profiler drops a window now and
+    then over the many this run opens): it is taken again, up to
+    ``PROFILER_WINDOWS`` times, each miss logged; then the run fails."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(3):
-        fn()
     for attempt in range(PROFILER_WINDOWS):
         torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
@@ -393,21 +389,35 @@ def device_ms(torch, fn, kernel: str | None, reps: int = 20) -> tuple[float, flo
                 trace = json.load(f)
         events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("ph") == "X"]
+        got = accept(events)
+        if got is not None:
+            return got
+        log(f"[profiler] window {attempt + 1} of {PROFILER_WINDOWS} for {what}: {len(events)} "
+            f"device events for {reps} calls")
+    require(False, f"{what}: no profiler window of {PROFILER_WINDOWS} held the calls' device "
+            f"events")
+
+
+def device_ms(torch, fn, kernel: str | None, reps: int = 20) -> tuple[float, float]:
+    """(median device time in ms of the kernels whose name contains
+    ``kernel``, device ops per call) over ``reps`` calls of ``fn``, from a
+    profiler window (:func:`trace_window`). ``kernel=None``: the mean device
+    time of all of a call's kernels together."""
+
+    def accept(events):
         kernels = [e for e in events if e["cat"] == "kernel"]
         if kernel is None:
-            if kernels:
-                return sum(e["dur"] for e in kernels) / 1e3 / reps, len(events) / reps
-            log(f"[profiler] window {attempt + 1} of {PROFILER_WINDOWS} for all kernels: "
-                f"no kernel events for {reps} calls")
-            continue
+            return (sum(e["dur"] for e in kernels) / 1e3 / reps, len(events) / reps) if (
+                kernels) else None
         # the trace may miss an event at the start of the window
         ours = [e["dur"] for e in kernels if kernel in e["name"]]
         if reps - 2 <= len(ours) <= reps:
             return statistics.median(ours) / 1e3, len(events) / len(ours)
-        log(f"[profiler] window {attempt + 1} of {PROFILER_WINDOWS} for {kernel}: {len(ours)} "
-            f"kernel events for {reps} calls")
-    require(False, f"device time of {kernel or 'all kernels'}: no profiler window of "
-            f"{PROFILER_WINDOWS} held the calls' device events")
+        return None
+
+    for _ in range(3):
+        fn()
+    return trace_window(torch, fn, reps, accept, f"device time of {kernel or 'all kernels'}")
 
 
 def find_card(torch) -> str:
@@ -2581,39 +2591,16 @@ AOT_REFINE_STEPS = 3
 
 
 def device_window(torch, fn, reps: int, marker: str) -> list:
-    """The device events (kernels, copies, sets) of ``reps`` calls of ``fn``
-    in one profiler window, recorded after a discarded warm-up window of
-    ``reps`` calls. ``fn`` launches one kernel whose name holds ``marker``
-    per call: a window without exactly ``reps`` of them, or whose event
-    count is not a multiple of ``reps``, missed events and is taken again
-    (each miss logged), up to ``PROFILER_WINDOWS`` times, then the run
-    fails."""
-    import tempfile
+    """The device events of ``reps`` calls of ``fn`` in one profiler window
+    (:func:`trace_window`). ``fn`` launches one kernel whose name holds
+    ``marker`` per call: a window without exactly ``reps`` of them, or whose
+    event count is not a multiple of ``reps``, missed events."""
 
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    for attempt in range(PROFILER_WINDOWS):
-        torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = f"{tmp}/trace.json"
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                         on_trace_ready=lambda p, path=path: p.export_chrome_trace(path)) as prof:
-                for _step in range(2):
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda.synchronize()
-                    prof.step()
-            with open(path) as f:
-                trace = json.load(f)
-        events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("ph") == "X"]
+    def accept(events):
         marked = sum(marker in e["name"] for e in events if e["cat"] == "kernel")
-        if marked == reps and len(events) % reps == 0:
-            return events
-        log(f"[profiler] window {attempt + 1} of {PROFILER_WINDOWS}: {marked} {marker} events "
-            f"and {len(events)} device events for {reps} calls")
-    require(False, f"no profiler window of {PROFILER_WINDOWS} held all the calls' device events")
+        return events if marked == reps and len(events) % reps == 0 else None
+
+    return trace_window(torch, fn, reps, accept, f"{reps} calls marked {marker}")
 
 
 def busy_ms(events: list) -> float:
@@ -3028,9 +3015,11 @@ def run_aot_cold(torch) -> None:
     the kernels (nvcc), the compiled one installs its library. Reports each
     process's wall time to the end of its loop (from its output lines'
     arrival) beside its own load and loop times; asserts that both saved
-    runs equal an eager in-process run of the same flags bitwise, that no
-    build ran for the compiled artifact, and that an artifact with another
-    kernel hash is refused."""
+    runs equal an eager in-process run of the same flags bitwise, that the
+    compiled artifact's process ran with no nvcc to be found (neither on
+    its PATH nor under its CUDA_HOME, so a build would have failed it) and
+    left the artifact's library bytes in its build directory, and that an
+    artifact with another kernel hash is refused."""
     import json
     import os
     import shutil
@@ -3062,9 +3051,16 @@ def run_aot_cold(torch) -> None:
             require(not os.path.exists(f"{fresh}/build"), "[aot-cold] the copy has a build")
             argv = [sys.executable, "-m", "plasma_control_tpu_torch.run_mpc", *SPECTRAL_FLAGS,
                     *steps, "--save_file", f"{fresh}/out", "--aot", f"{tmp}/{name}"]
+            env = None
+            if kind == "compiled":
+                # no nvcc to be found: a build would raise, and the run fail
+                os.makedirs(f"{tmp}/no_cuda")
+                path = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+                        if d and not os.path.exists(os.path.join(d, "nvcc"))]
+                env = dict(os.environ, PATH=os.pathsep.join(path), CUDA_HOME=f"{tmp}/no_cuda")
             t0 = time.perf_counter()
             proc = subprocess.Popen(argv, cwd=fresh, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
+                                    stderr=subprocess.STDOUT, text=True, env=env)
             lines = []
             for line in proc.stdout:
                 lines.append((time.perf_counter() - t0, line.rstrip()))
@@ -3080,11 +3076,18 @@ def run_aot_cold(torch) -> None:
                         f"[aot-cold] {kind}: {key} differs from the eager in-process run")
             built = os.listdir(f"{fresh}/build/plasma_control_tpu_torch")
             require(lib_name in built, f"[aot-cold] {kind}: no {lib_name} in {built}")
+            if kind == "compiled":
+                with open(f"{tmp}/{name}", "rb") as f:
+                    data = f.read()
+                (n,) = struct.unpack("<Q", data[8:16])
+                with open(f"{fresh}/build/plasma_control_tpu_torch/{lib_name}", "rb") as f:
+                    require(f.read() == data[16 + n:], "[aot-cold] compiled: the installed "
+                            "library is not the artifact's")
             load_line = next(text for _, text in lines if "loaded" in text)
             loop_line = next(text for _, text in lines if "through the artifact" in text)
             log(f"[aot-cold] {kind} artifact, fresh process (python -m "
                 f"plasma_control_tpu_torch.run_mpc --aot, {AOT_COLD_STEPS} steps, empty build "
-                f"directory): {wall:.3f} s wall to exit; its loop ended {at['through the artifact']:.3f}"
+                f"directory{', no nvcc to be found' if env else ''}): {wall:.3f} s wall to exit; its loop ended {at['through the artifact']:.3f}"
                 f" s after launch (load line at {at['loaded']:.3f} s); '{load_line}'; "
                 f"'{loop_line}'; saved run bitwise the eager in-process run's")
         # another kernel hash: refused

@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -72,7 +72,7 @@ from .feedback import feedback_coefficients
 from .rl.optim import Adam
 
 __all__ = ["MPCOutput", "candidate_costs", "knot_noise", "ar1_noise", "draw_noise", "plan",
-           "plan_fidelity_check", "twin_targets", "mpc_rollout"]
+           "plan_fidelity_check", "twin_targets", "control_step_fn", "closed_loop", "mpc_rollout"]
 
 
 class MPCOutput(NamedTuple):
@@ -799,6 +799,55 @@ def plan(
     return _apply_fidelity_guard(out, full_x, full_cfg, ctrl, mpc)
 
 
+def control_step_fn(grid: Grid, cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig,
+                    actuator: FourierActuator) -> Callable:
+    """The closed-loop control step with the configuration closed over:
+    ``(x, v, mean, generator=None, noise=None) -> (x', v', mean', action,
+    pe, ke, ie, best)``. It solves from ``mean`` (``noise``, the unit draws,
+    in place of the generator's), applies the first action through one full
+    PIC step, records the energies after it and the action's input energy,
+    and shifts the nominal. :func:`mpc_rollout` is :func:`closed_loop` over
+    it."""
+    sigma = torch.tensor(mpc.sigma0, dtype=grid.e_op.dtype, device=grid.e_op.device)
+
+    def ctrl_step(x, v, mean, generator=None, noise=None):
+        state = PlasmaState(x, v)
+        action, new_mean, best = plan(state, mean, sigma, generator, grid, cfg, ctrl, mpc,
+                                      actuator, noise=noise)
+        state = step(state, grid, cfg, actuator.compute_e_packed(action))
+        pe, ke = _energies(state, grid, cfg)
+        shifted = torch.cat([new_mean[1:], new_mean[-1:]])  # receding horizon: shift, repeat last
+        return state.x, state.v, shifted, action, pe, ke, actuator.input_energy(action), best
+
+    return ctrl_step
+
+
+def closed_loop(ctrl_step: Callable, state: PlasmaState, mean: torch.Tensor,
+                generator: Optional[torch.Generator], n_steps: int,
+                step_noise: Optional[torch.Tensor] = None) -> MPCOutput:
+    """The host loop of receding-horizon control over a control step (as
+    :func:`control_step_fn` returns): ``n_steps`` steps from ``state`` and
+    the nominal ``mean``, each with the generator's draws or
+    ``step_noise[i]``."""
+    x, v = state
+    cols = []
+    for i in range(n_steps):
+        noise = None if step_noise is None else step_noise[i]
+        x, v, mean, action, pe, ke, ie, best = ctrl_step(x, v, mean, generator, noise)
+        cols.append((pe, ke, action, ie, best))
+    pe, ke, coeffs, ie, best = (torch.stack(col) for col in zip(*cols))
+    return MPCOutput(
+        final_state=PlasmaState(x, v),
+        field_energy=pe,
+        kinetic=ke,
+        hamiltonian=pe + ke,
+        coeffs=coeffs,
+        input_energy=ie,
+        plan_cost=best,
+        final_mean=mean,
+    )
+
+
 def mpc_rollout(
     state: PlasmaState,
     grid: Grid,
@@ -814,34 +863,14 @@ def mpc_rollout(
     """Closed-loop receding-horizon control for ``n_steps`` env steps.
 
     Each step solves, applies the first action through one full PIC step
-    and shifts the nominal. ``step_noise`` (T, K, H, 2K), or (T, n_iters, K,
-    H, 2K) for CEM, overrides the per-solve draws (the counterpart of JAX's
-    ``step_keys``)."""
+    and shifts the nominal (:func:`control_step_fn`). ``step_noise`` (T, K,
+    H, 2K), or (T, n_iters, K, H, 2K) for CEM, overrides the per-solve draws
+    (the counterpart of JAX's ``step_keys``)."""
     t_steps = step_noise.shape[0] if step_noise is not None else (
         n_steps if n_steps is not None else cfg.n_steps
     )
-    x = state.x
     mean = mean0 if mean0 is not None else torch.zeros(
-        (mpc.horizon, 2 * ctrl.max_mode), dtype=x.dtype, device=x.device
+        (mpc.horizon, 2 * ctrl.max_mode), dtype=state.x.dtype, device=state.x.device
     )
-    sigma = torch.tensor(mpc.sigma0, dtype=x.dtype, device=x.device)
-    outs = []
-    for i in range(t_steps):
-        noise = None if step_noise is None else step_noise[i]
-        action, new_mean, best = plan(state, mean, sigma, generator, grid, cfg, ctrl, mpc,
-                                      actuator, noise=noise)
-        state = step(state, grid, cfg, actuator.compute_e_packed(action))
-        pe, ke = _energies(state, grid, cfg)
-        outs.append((pe, ke, action, actuator.input_energy(action), best))
-        mean = torch.cat([new_mean[1:], new_mean[-1:]])  # receding horizon: shift, repeat last
-    pe, ke, coeffs, ie, best = (torch.stack(col) for col in zip(*outs))
-    return MPCOutput(
-        final_state=state,
-        field_energy=pe,
-        kinetic=ke,
-        hamiltonian=pe + ke,
-        coeffs=coeffs,
-        input_energy=ie,
-        plan_cost=best,
-        final_mean=mean,
-    )
+    return closed_loop(control_step_fn(grid, cfg, ctrl, mpc, actuator), state, mean, generator,
+                       t_steps, step_noise)

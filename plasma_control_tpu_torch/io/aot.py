@@ -2,9 +2,10 @@
 
 The counterpart of :mod:`plasma_control_tpu.io.aot`. The step functions are
 the same: :func:`plan_step_fn`, the solve ``(x, v, mean) -> (action,
-new_mean, best_cost)``, and :func:`control_step_fn`, the exact loop body of
-:func:`..control.mpc.mpc_rollout` (solve, apply the first action, one env
-step, the energies, the shifted nominal). Where JAX takes a key, a step here
+new_mean, best_cost)``, and :func:`control_step_fn`
+(:func:`..control.mpc.control_step_fn`, the step
+:func:`..control.mpc.mpc_rollout` loops over: solve, apply the first action,
+one env step, the energies, the shifted nominal). Where JAX takes a key, a step here
 takes a ``torch.Generator`` or handed-in unit draws (``noise``).
 
 Where JAX compiles the step into one device program, the port captures it on
@@ -41,15 +42,15 @@ import dataclasses
 import json
 import os
 import struct
+import warnings
 from typing import Callable, Optional
 
 import torch
 
 from ..config import ControlConfig, MPCConfig, SimConfig
 from ..control.actuator import FourierActuator, make_actuator
-from ..control.mpc import MPCOutput, plan
-from ..models.pic import PlasmaState, step
-from ..models.rollout import _energies
+from ..control.mpc import MPCOutput, closed_loop, control_step_fn, plan
+from ..models.pic import PlasmaState
 from ..ops.grid import Grid, make_grid
 
 __all__ = [
@@ -89,27 +90,6 @@ def plan_step_fn(grid: Grid, cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig
                     noise=noise)
 
     return plan_step
-
-
-def control_step_fn(grid: Grid, cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig,
-                    actuator: FourierActuator) -> Callable:
-    """The closed-loop control step, exactly ``mpc_rollout``'s loop body:
-    ``(x, v, mean, generator=None, noise=None) -> (x', v', mean', action, pe,
-    ke, ie, best)``. A host loop over it from a zero nominal with one
-    generator reproduces ``mpc_rollout(..., generator)`` bitwise."""
-    sigma = torch.tensor(mpc.sigma0, dtype=torch.float32, device=grid.e_op.device)
-
-    def ctrl_step(x, v, mean, generator=None, noise=None):
-        st = PlasmaState(x, v)
-        action, new_mean, best = plan(st, mean, sigma, generator, grid, cfg, ctrl, mpc, actuator,
-                                      noise=noise)
-        new_st = step(st, grid, cfg, actuator.compute_e_packed(action))
-        pe, ke = _energies(new_st, grid, cfg)
-        ie = actuator.input_energy(action)
-        shifted = torch.cat([new_mean[1:], new_mean[-1:]])
-        return new_st.x, new_st.v, shifted, action, pe, ke, ie, best
-
-    return ctrl_step
 
 
 def plan_example_args(cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig, device="cuda"):
@@ -230,6 +210,10 @@ class LoadedStep:
     def __init__(self, fingerprint: dict, device="cuda"):
         if fingerprint.get("format") != FORMAT:
             raise ValueError(f"not a step artifact of this package: {fingerprint.get('format')!r}")
+        if fingerprint.get("torch") != torch.__version__:
+            warnings.warn(f"the artifact was written under torch {fingerprint.get('torch')}, this "
+                          f"is torch {torch.__version__}: its step is rebuilt with this torch "
+                          f"and may not match the writer's bitwise", stacklevel=2)
         self.fingerprint, self.kind = fingerprint, fingerprint["kind"]
         cfg = SimConfig(**fingerprint["sim"])
         ctrl = ControlConfig(**fingerprint["control"])
@@ -355,26 +339,15 @@ def load_compiled_plan(path: str, device="cuda") -> LoadedStep:
 def aot_mpc_rollout(ctrl_step: Callable, state: PlasmaState, generator: Optional[torch.Generator],
                     n_steps: int, horizon: int, n_actions: int,
                     step_noise: Optional[torch.Tensor] = None) -> MPCOutput:
-    """Closed-loop receding-horizon control as a host loop over a control
-    step (:func:`control_step_fn`, a :class:`GraphedStep` or a loaded
-    artifact) from a zero nominal: per step the generator's draws, or
+    """Closed-loop receding-horizon control as the host loop
+    (:func:`..control.mpc.closed_loop`) over a control step
+    (:func:`control_step_fn`, a :class:`GraphedStep` or a loaded artifact)
+    from a zero nominal: per step the generator's draws, or
     ``step_noise[i]``. Reproduces ``mpc_rollout(state, ..., generator,
-    n_steps)``; returns an :class:`..control.mpc.MPCOutput`."""
-    x, v = state.x, state.v
-    mean = torch.zeros((horizon, n_actions), dtype=torch.float32, device=x.device)
-    cols = []
-    for i in range(n_steps):
-        noise = None if step_noise is None else step_noise[i]
-        x, v, mean, a, pe, ke, ie, best = ctrl_step(x, v, mean, generator, noise)
-        cols.append((pe, ke, a, ie, best))
-    pe, ke, coeffs, ie, best = (torch.stack(c) for c in zip(*cols))
-    return MPCOutput(
-        final_state=PlasmaState(x.clone(), v.clone()),
-        field_energy=pe,
-        kinetic=ke,
-        hamiltonian=pe + ke,
-        coeffs=coeffs,
-        input_energy=ie,
-        plan_cost=best,
-        final_mean=mean.clone(),
-    )
+    n_steps)``. The final state and nominal are copies, never a graph's
+    static buffers."""
+    mean = torch.zeros((horizon, n_actions), dtype=torch.float32, device=state.x.device)
+    out = closed_loop(ctrl_step, state, mean, generator, n_steps, step_noise)
+    return out._replace(final_state=PlasmaState(out.final_state.x.clone(),
+                                                out.final_state.v.clone()),
+                        final_mean=out.final_mean.clone())

@@ -12,6 +12,7 @@ without jax: ``python -m pytest tests/test_torch_aot.py --noconftest -m cuda``."
 import dataclasses
 import json
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -244,6 +245,19 @@ def test_pinned_shapes_and_configs_raise(tmp_path):
         aot.check_plan(step, dataclasses.replace(cfg, n_particles=500), ctrl, mpc)
     with pytest.raises(ValueError, match="'control_step' step, not 'plan'"):
         aot.check_plan(step, cfg, ctrl, mpc, kind="plan")
+
+
+def test_artifact_of_another_torch_warns():
+    """An artifact written under another torch version loads with a warning
+    (its step is rebuilt with this torch); one of this version loads
+    silently."""
+    cfg, ctrl, mpc, grid, act = _port()
+    fp = json.loads(aot.export_plan(grid, cfg, ctrl, mpc, act, kind="control_step"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        aot.LoadedStep(fp, device="cpu")
+    with pytest.warns(UserWarning, match="written under torch 0.0.1"):
+        aot.LoadedStep(dict(fp, torch="0.0.1"), device="cpu")
 
 
 FLAGS = ["--simcase", "bump-on-tail", "--num_particle", "256", "--num_mesh", "32", "--t_max",
