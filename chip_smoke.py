@@ -159,7 +159,36 @@ any failure exits non-zero:
    or not) twice each and require bitwise equal results; then run the
    spectral, the grid and the twin slice and the feedback loop twice for
    20 steps from one seed and report whether the two runs end in bitwise
-   the same state.
+   the same state;
+7. the sharded paths, the plots and the NaN checks, each with the launch
+   counts set to 0 before it and read after:
+   a. ``[parallel]`` in this process, a one-rank NCCL group: config-4's
+      full-fidelity solve (N=100000, M=256, max_mode 8, K=384, H=10, Km=16)
+      through ``make_sharded_plan`` bitwise ``plan`` on the same draws (one
+      launch of kernel 1, one deposit), three steps of
+      ``make_sharded_mpc_rollout`` bitwise ``mpc_rollout`` (1 / 5 / 3
+      launches of kernels 1 / 2 / 3 per step); the group destroyed after;
+   b. ``[parallel]`` in two ranks of this script on one card in a gloo group
+      (``--parallel-rank``; they load the library built here): config-4's
+      solve at K=768 (384 per rank) and one grid-slice solve (K=512, kernel
+      6) against the one-rank solve, five twin-slice steps (K=1024, 512 per
+      rank, guard on, from a coherent state where the guard lets the solves
+      through) with the ranks' final states compared bitwise, and config-5's
+      particle-sharded push (``bench_scaling.py:481-498``: N=1M, M=256,
+      500000 per rank on kernels 2-3) against the one-rank step, one step
+      at atol 1e-4 and 20 with the field energies and charge; then
+      ``dryrun_multichip(2)``. Per-rank launch counts; ms per solve and per
+      step, which time collectives on one card, not multi-GPU scaling;
+   c. ``[viz]``: ``_e_mesh_series`` and ``_spectrum`` of a config-4 snapshot
+      (50 steps, 51 columns) on the card, one deposit launch per call,
+      against the CPU's dense version (atol 1e-4); ``run_and_save`` writes
+      the data and says whether it drew the plots (no matplotlib there);
+   d. ``[debug]``: ``nan_checks()`` raises on a torch operation's NaN on the
+      card and on a NaN position fed to the deposit kernel, and
+      ``GraphedStep`` refuses to capture while it is on;
+   e. ``[twin-tail]``: the twin slice's seeded state rolled 500 steps
+      uncontrolled through kernels 2-3 and through the scatter deposit, the
+      two last-20 tails side by side (fp32-chaos bound 1 %).
 
 The last two lines of standard output are one JSON object per kernel
 (launches in its path's run, error against the plain version, times, the
@@ -2593,12 +2622,16 @@ AOT_REFINE_STEPS = 3
 def device_window(torch, fn, reps: int, marker: str) -> list:
     """The device events of ``reps`` calls of ``fn`` in one profiler window
     (:func:`trace_window`). ``fn`` launches one kernel whose name holds
-    ``marker`` per call: a window without exactly ``reps`` of them, or whose
-    event count is not a multiple of ``reps``, missed events."""
+    ``marker`` per call and the same device ops in every call: a window
+    without exactly ``reps`` marked kernels, or in which some op's count is
+    not a multiple of ``reps``, missed events. (A window that drops one event
+    of each of ``reps`` ops keeps its total a multiple of ``reps``: only the
+    count of each op shows it.)"""
 
     def accept(events):
         marked = sum(marker in e["name"] for e in events if e["cat"] == "kernel")
-        return events if marked == reps and len(events) % reps == 0 else None
+        per_op = collections.Counter(e["name"] for e in events)
+        return events if marked == reps and all(n % reps == 0 for n in per_op.values()) else None
 
     return trace_window(torch, fn, reps, accept, f"{reps} calls marked {marker}")
 
@@ -3109,6 +3142,478 @@ def run_aot_cold(torch) -> None:
         log(f"[aot-cold] artifact with another kernel hash refused: {refused}")
 
 
+# ---------------------------------------------------------------------------
+# The sharded planner and step ([parallel]), the plots' field
+# series ([viz]), the NaN checks ([debug]), the twin state's uncontrolled tail
+# ---------------------------------------------------------------------------
+
+# bench_scaling.py:481-498's config-5 push on the CIC kernels: two-stream,
+# N=1M, M=256, 500000 particles per rank on two ranks
+CFG5_SIM = dict(simcase="two-stream", n_particles=1_000_000, n_mesh=256, dt=0.1,
+                deposit_method="pallas")
+PARTICLE_STEPS = 20
+PARALLEL_RANKS = 2
+PARALLEL_TWIN_STEPS = 5
+PARALLEL_CFG4_STEPS = 3
+VIZ_STEPS = 50  # [entry]'s run: config-4's environment, --t_max 5
+
+
+def _periodic_diff(torch, a, b, length: float):
+    """Largest |a - b| with differences taken modulo the box: a particle
+    that wraps in one run and not in the other counts by its distance."""
+    d = torch.remainder(a - b + 0.5 * length, length) - 0.5 * length
+    return float(d.abs().max())
+
+
+def _same(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _solve_ms(torch, fn, reps: int = 5) -> list:
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    return synced_ms(torch, fn, reps)
+
+
+def run_parallel_nccl(torch) -> None:
+    """[parallel] (a): a one-rank NCCL group in this process (a mesh built
+    with no group starts one in memory): config-4's full-fidelity solve
+    through make_sharded_plan against plan on the same draws, bitwise, and
+    three steps of make_sharded_mpc_rollout against mpc_rollout; the group
+    is destroyed at the end, so the later phases run as before."""
+    import torch.distributed as dist
+
+    from plasma_control_tpu_torch.control.mpc import mpc_rollout, plan, solve_noise
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.parallel.mesh import make_mesh
+    from plasma_control_tpu_torch.parallel.pic_shard import (make_sharded_mpc_rollout,
+                                                             make_sharded_plan)
+
+    dev = torch.device("cuda")
+    require(not dist.is_initialized(), "[parallel] a process group before the phase")
+    mesh = make_mesh(device_type="cuda")
+    try:
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                f"[parallel] group {dist.get_backend()} of {dist.get_world_size()}")
+        cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=CFG4_SIM, max_mode=CFG4_MAX_MODE,
+                                           mpc=CFG4_MPC)
+        state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        mean = torch.zeros((mpc.horizon, ctrl.n_actions), device=dev)
+        sigma = torch.tensor(mpc.sigma0, device=dev)
+        noise = solve_noise(torch.Generator(device=dev).manual_seed(3), mpc, mean)
+        plan_fn = make_sharded_plan(mesh, grid, cfg, ctrl, mpc, act)
+        ref = plan(state, mean, sigma, None, grid, cfg, ctrl, mpc, act, noise=noise)
+        fns = _kernel_fns()
+        _reset(fns)
+        got = plan_fn(state, mean, sigma, noise=noise)
+        torch.cuda.synchronize()
+        launches = _counts(fns)
+        log(f"[parallel] (a) NCCL, 1 rank: config-4 sharded solve (N={cfg.n_particles}, "
+            f"M={cfg.n_mesh}, K={mpc.n_candidates}, H={mpc.horizon}, Km={mpc.plan_modes}); "
+            f"launches {launches}")
+        require(_same(torch, got, ref), "[parallel] sharded solve (NCCL, 1 rank) vs plan: bitwise")
+        require(launches["spectral_horizon"] == 1 and launches["deposit_cic"] == 1,
+                "[parallel] one kernel 1 launch and one deposit (the feedback seed) per solve")
+        sharded_ms = _solve_ms(torch, lambda: plan_fn(state, mean, sigma, noise=noise))
+        plain_ms = _solve_ms(torch, lambda: plan(state, mean, sigma, None, grid, cfg, ctrl, mpc,
+                                                 act, noise=noise))
+        log(f"[parallel] (a) solve bitwise equal to plan; ms per solve (synchronised, 5): "
+            f"sharded {_spread(sharded_ms)}, plan {_spread(plain_ms)}")
+
+        roll = make_sharded_mpc_rollout(mesh, grid, cfg, ctrl, mpc, act)
+        steps = PARALLEL_CFG4_STEPS
+        _reset(fns)
+        times, st, m, outs = [], state, None, []
+        gen = torch.Generator(device=dev).manual_seed(4)
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            out = roll(st, gen, n_steps=1, mean0=m)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            st, m = out.final_state, out.final_mean
+            outs.append(out)
+        launches = _counts(fns)
+        ref = mpc_rollout(state, grid, cfg, ctrl, mpc, act,
+                          torch.Generator(device=dev).manual_seed(4), n_steps=steps)
+        pe = torch.cat([o.field_energy for o in outs])
+        log(f"[parallel] (a) {steps} sharded control steps: launches {launches}; ms per step "
+            f"{', '.join(f'{t:.4f}' for t in times)}; PE {pe.tolist()}")
+        require(launches["spectral_horizon"] == steps, "[parallel] one kernel 1 launch per step")
+        require(launches["deposit_cic"] == 5 * steps and launches["gather_cic"] == 3 * steps,
+                "[parallel] five deposits and three gathers per control step")
+        require(torch.equal(pe, ref.field_energy) and torch.equal(st.x, ref.final_state.x),
+                "[parallel] sharded loop (NCCL, 1 rank) vs mpc_rollout: bitwise")
+        log("[parallel] (a) the 3-step sharded loop is bitwise mpc_rollout's")
+    finally:
+        dist.destroy_process_group()
+    require(not dist.is_initialized(), "[parallel] group not destroyed")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_parallel_ranks(torch) -> None:
+    """[parallel] (b): two ranks of this script on cuda:0 in one gloo group
+    (NCCL takes one card per rank). They load the kernel library this
+    process built and run :func:`parallel_rank`; this process relays their
+    output and checks both finished."""
+    import os
+    import tempfile
+
+    port = str(_free_port())
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ)
+        for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+            env.pop(key, None)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                                   str(r), port, out], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True, env=env)
+                 for r in range(PARALLEL_RANKS)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            for line in text.splitlines():
+                log(f"[parallel r{r}] {line}")
+            require(p.returncode == 0, f"[parallel] rank {r} exited {p.returncode}")
+        results = [json.load(open(os.path.join(out, f"rank{r}.json")))
+                   for r in range(PARALLEL_RANKS)]
+    for r, res in enumerate(results):
+        log(f"[parallel] rank {r} launch counts per path: {json.dumps(res['launches'])}")
+    log("[parallel] (b) two ranks share one card: these times are collectives through gloo "
+        "on one H100, not a multi-GPU scaling figure")
+
+
+def parallel_rank(rank: int, port: str, out_dir: str) -> int:
+    """One rank of [parallel] (b), run as ``chip_smoke.py --parallel-rank R
+    PORT DIR``: the checks below, then ``DIR/rank<R>.json``."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from plasma_control_tpu_torch.control.mpc import mpc_rollout, plan, solve_noise
+    from plasma_control_tpu_torch.models.pic import diagnostics, init_state, step
+    from plasma_control_tpu_torch.ops.deposit import deposit
+    from plasma_control_tpu_torch.ops.kernels import _build
+    from plasma_control_tpu_torch.parallel.dryrun import dryrun_multichip
+    from plasma_control_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from plasma_control_tpu_torch.parallel.pic_shard import (make_particle_sharded_step,
+                                                             make_sharded_mpc_rollout,
+                                                             make_sharded_plan)
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    # a rank that fails stops its collectives: the other gives up after 120 s
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=PARALLEL_RANKS, timeout=datetime.timedelta(seconds=120))
+    path, seconds, _ = _build.build()
+    require(seconds == 0.0, "[parallel] a rank compiled the kernels (the parent built them)")
+    log(f"rank {rank}/{PARALLEL_RANKS} on {torch.cuda.get_device_name(0)}, gloo; kernel "
+        f"library {path.name} loaded, not rebuilt")
+    mesh = make_mesh(axis_names=("rollout",), device_type="cuda")
+    fns = _kernel_fns()
+    launches = {}
+
+    def gathered(t):
+        blocks = [torch.empty_like(t) for _ in range(PARALLEL_RANKS)]
+        dist.all_gather(blocks, t.contiguous())
+        return blocks
+
+    def ranks_equal(*tensors) -> bool:
+        return all(all(torch.equal(b[0], b_r) for b_r in b[1:])
+                   for b in (gathered(t) for t in tensors))
+
+    def solve_check(name, sim, max_mode, mpc_kw, seed_state):
+        cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=sim, max_mode=max_mode, mpc=mpc_kw)
+        state = init_state(cfg, torch.Generator(device=dev).manual_seed(seed_state), device=dev)
+        mean = torch.zeros((mpc.horizon, ctrl.n_actions), device=dev)
+        sigma = torch.tensor(mpc.sigma0, device=dev)
+        noise = solve_noise(torch.Generator(device=dev).manual_seed(3), mpc, mean)
+        plan_fn = make_sharded_plan(mesh, grid, cfg, ctrl, mpc, act)
+        ref = plan(state, mean, sigma, None, grid, cfg, ctrl, mpc, act, noise=noise)
+        _reset(fns)
+        got = plan_fn(state, mean, sigma, noise=noise)
+        torch.cuda.synchronize()
+        launches[name] = _counts(fns)
+        bitwise = _same(torch, got, ref)
+        err = max(float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2]))
+        rel = abs(float(got[2]) - float(ref[2])) / max(1.0, abs(float(ref[2])))
+        require(ranks_equal(*got), f"[parallel] {name}: ranks differ")
+        # without bitwise equality: the JAX distributed test's bounds
+        require(bitwise or (err <= 1e-5 and rel <= 1e-4), f"[parallel] {name}: {err}, {rel}")
+        sharded_ms = _solve_ms(torch, lambda: plan_fn(state, mean, sigma, noise=noise))
+        single_ms = _solve_ms(torch, lambda: plan(state, mean, sigma, None, grid, cfg, ctrl, mpc,
+                                                  act, noise=noise))
+        log(f"{name}: K={mpc.n_candidates} ({mpc.n_candidates // PARALLEL_RANKS} per rank) "
+            f"against the one-rank plan on the same draws: bitwise {bitwise} (max |diff| action/"
+            f"mean {err:.3g}, best cost rel {rel:.3g}; bounds 1e-5 / 1e-4), ranks bitwise equal; "
+            f"launches {launches[name]}; ms per solve: sharded {_spread(sharded_ms)}, one rank "
+            f"{_spread(single_ms)}")
+        return launches[name]
+
+    # config-4's full-fidelity solve, K=384 per rank
+    got = solve_check("config-4 solve", CFG4_SIM, CFG4_MAX_MODE,
+                      dict(CFG4_MPC, n_candidates=PARALLEL_RANKS * CFG4_MPC["n_candidates"]), 0)
+    require(got["spectral_horizon"] == 1 and got["deposit_cic"] == 1,
+            "[parallel] config-4 solve: one kernel 1 launch, one deposit per rank")
+    # one grid-slice solve: kernel 6 on each rank's 256 candidates
+    got = solve_check("grid solve", SIM, MAX_MODE, GRID_MPC, 0)
+    require(got["fused_packed_horizon"] == 1, "[parallel] grid solve: one kernel 6 launch per rank")
+
+    # the twin slice's loop, 5 steps, from a coherent state at which the guard
+    # lets the solves through (seeded states make it zero the drive)
+    cfg, ctrl, mpc, grid, act = _twin_setup(torch, dev)
+    cs = coherent_state(torch, cfg.n_particles, cfg.length, seed=11)
+    state = type(cs)(cs.x.to(dev), cs.v.to(dev))
+    roll = make_sharded_mpc_rollout(mesh, grid, cfg, ctrl, mpc, act)
+    steps = PARALLEL_TWIN_STEPS
+    _reset(fns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = roll(state, torch.Generator(device=dev).manual_seed(6), n_steps=steps)
+    torch.cuda.synchronize()
+    sharded_ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches["twin loop"] = _counts(fns)
+    t0 = time.perf_counter()
+    ref = mpc_rollout(state, grid, cfg, ctrl, mpc, act, torch.Generator(device=dev).manual_seed(6),
+                      n_steps=steps)
+    torch.cuda.synchronize()
+    single_ms = 1e3 * (time.perf_counter() - t0) / steps
+    equal = ranks_equal(out.final_state.x, out.final_state.v, out.coeffs, out.field_energy)
+    bitwise = torch.equal(out.final_state.x, ref.final_state.x) and torch.equal(out.coeffs,
+                                                                               ref.coeffs)
+    pe_rel = float(((out.field_energy - ref.field_energy).abs()
+                    / ref.field_energy.abs().clamp_min(1e-30)).max())
+    a_err = float((out.coeffs - ref.coeffs).abs().max())
+    passed = int((out.coeffs != 0).any(-1).sum())
+    log(f"twin loop: {steps} steps, K={mpc.n_candidates} ({mpc.n_candidates // PARALLEL_RANKS} "
+        f"per rank), plan_particles {mpc.plan_particles}, plan_mesh {mpc.plan_mesh}, Km "
+        f"{mpc.plan_modes}, twin correction, guard on ({passed} of {steps} solves drove): ranks "
+        f"bitwise equal {equal}; against the one-rank loop bitwise {bitwise}, PE max rel "
+        f"{pe_rel:.3g} (bound 1e-4), coefficients max |diff| {a_err:.3g} (bound 1e-4); "
+        f"launches {launches['twin loop']}; ms per step sharded {sharded_ms:.4f}, one rank "
+        f"{single_ms:.4f}")
+    require(equal, "[parallel] twin loop: the ranks' final states differ")
+    require(passed > 0, "[parallel] twin loop: the guard zeroed every solve")
+    require(bitwise or (pe_rel <= 1e-4 and a_err <= 1e-4), "[parallel] twin loop vs one rank")
+    got = launches["twin loop"]
+    require(got["spectral_horizon_twin"] == steps and got["gather_cic"] == 3 * steps
+            and got["deposit_cic"] >= 5 * steps, "[parallel] twin loop launches")
+
+    # config-5's particle-sharded push: 500000 particles per rank
+    mesh_p = make_mesh(axis_names=("particle",), device_type="cuda")
+    cfg5, _, _, grid5, _ = _setup(torch, dev, sim=CFG5_SIM)
+    st5 = init_state(cfg5, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step_fn = make_particle_sharded_step(mesh_p, grid5, cfg5)
+    e0 = torch.zeros(cfg5.n_mesh, device=dev)
+    x, v = shard_batch((st5.x, st5.v), mesh_p, axis="particle")
+    _reset(fns)
+    x1, v1 = step_fn(x, v, e0)
+    torch.cuda.synchronize()
+    launches["particle step"] = _counts(fns)
+    full = step(st5, grid5, cfg5, e0)
+    x1_all, v1_all = torch.cat(gathered(x1)), torch.cat(gathered(v1))
+    dx1 = _periodic_diff(torch, x1_all, full.x, cfg5.length)
+    dv1 = float((v1_all - full.v).abs().max())
+    log(f"config-5 particle-sharded step: N={cfg5.n_particles} ({x.shape[0]} per rank), "
+        f"M={cfg5.n_mesh}: one step against the one-rank step max |dx| {dx1:.3g} (periodic), "
+        f"|dv| {dv1:.3g} (atol 1e-4); launches {launches['particle step']}")
+    require(dx1 <= 1e-4 and dv1 <= 1e-4, "[parallel] particle-sharded step vs step: atol 1e-4")
+    require(launches["particle step"]["deposit_cic"] == 3
+            and launches["particle step"]["gather_cic"] == 3,
+            "[parallel] three deposits and three gathers per sharded step")
+    xs, vs, st, times = x1, v1, full, []
+    for _ in range(PARTICLE_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs, vs = step_fn(xs, vs, e0)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        st = step(st, grid5, cfg5, e0)
+    one_rank_ms = _solve_ms(torch, lambda: step(st5, grid5, cfg5, e0), reps=10)
+    x_all, v_all = torch.cat(gathered(xs)), torch.cat(gathered(vs))
+    pe_sharded = float(diagnostics(type(st)(x_all, v_all), grid5, cfg5)[2])
+    pe_full = float(diagnostics(st, grid5, cfg5)[2])
+    charge = float(deposit(x_all, grid5, method="pallas").sum()) * grid5.dx
+    log(f"config-5 particle-sharded push, {PARTICLE_STEPS} steps: max |dx| "
+        f"{_periodic_diff(torch, x_all, st.x, cfg5.length):.3g}, |dv| "
+        f"{float((v_all - st.v).abs().max()):.3g} against the one-rank steps; field energy "
+        f"{pe_sharded:.9g} sharded, {pe_full:.9g} one rank; charge {charge:.6f} (L = "
+        f"{cfg5.length}); ms per sharded step {_spread(times)}, one-rank step "
+        f"{_spread(one_rank_ms)}")
+    require(abs(charge - cfg5.length) < 1e-2, "[parallel] charge not conserved")
+    require(math.isfinite(pe_sharded), "[parallel] sharded push: PE not finite")
+
+    dryrun_multichip(PARALLEL_RANKS, "cuda")
+    log("dryrun_multichip(2) on cuda:0: ok")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump({"launches": launches}, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_viz(torch) -> None:
+    """[viz]: the plots' field series on the card (one deposit launch for
+    all Nt columns) against the CPU's dense deposit, the spectrum from it,
+    and run_and_save writing the data where matplotlib is missing."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from plasma_control_tpu_torch import cli
+    from plasma_control_tpu_torch.diag.spectrum import spectrum_wavenumbers
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.models.rollout import rollout, snapshot_from_rollout
+    from plasma_control_tpu_torch.viz import plots
+
+    dev = torch.device("cuda")
+    sim = dict(CFG4_SIM, t_max=VIZ_STEPS * CFG4_SIM["dt"])
+    cfg, ctrl, _, grid, _ = _setup(torch, dev, sim=sim, max_mode=CFG4_MAX_MODE, mpc=CFG4_MPC)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    out = rollout(state, grid, cfg, record_snapshots=True)
+    snap = snapshot_from_rollout(out).cpu().numpy()
+    m, length = cfg.n_mesh, cfg.length
+    fns = _kernel_fns()
+    _reset(fns)
+    e_card = plots._e_mesh_series(snap, length, m, device="cuda")
+    ks, spec_card = plots._spectrum(snap, length, grid.dx, m, device="cuda")
+    launches = _counts(fns)
+    t0 = time.perf_counter()
+    e_cpu = plots._e_mesh_series(snap, length, m, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    n_keep = len(spectrum_wavenumbers(m, grid.dx))
+    spec_cpu = np.abs(np.fft.fft(e_cpu, axis=1) / m * 2.0)[:, :n_keep].T  # _spectrum's formula
+    card_ms = _solve_ms(torch, lambda: plots._e_mesh_series(snap, length, m, device="cuda"), 5)
+    e_err = float(np.abs(e_card - e_cpu).max())
+    s_err = float(np.abs(spec_card - spec_cpu).max())
+    log(f"[viz] _e_mesh_series of a ({snap.shape[0]}, {snap.shape[1]}) snapshot (config-4 "
+        f"environment, {VIZ_STEPS} steps), M={m}: launches {launches} (one deposit over "
+        f"{snap.shape[1]} columns per call); card vs CPU dense: E max |diff| {e_err:.3g} "
+        f"(max |E| {float(np.abs(e_cpu).max()):.4g}; atol 1e-4), spectrum max |diff| {s_err:.3g} "
+        f"(atol 1e-4), {len(ks)} wavenumbers; ms per call on the card {_spread(card_ms)}, the "
+        f"CPU dense version {1e3 * cpu_s:.1f} ms")
+    require(launches["deposit_cic"] == 2 and launches["gather_cic"] == 0,
+            "[viz] one deposit launch per field series")
+    require(e_err <= 1e-4 and s_err <= 1e-4, "[viz] card vs CPU field series / spectrum")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = dict(save_file=f"{tmp}/d", save_plot=f"{tmp}/p", simcase=cfg.simcase,
+                    is_save=True)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli.run_and_save("viz", args, cfg, ctrl, snap, out.hamiltonian.cpu().numpy(),
+                             out.field_energy.cpu().numpy(), device="cuda")
+        saved = os.path.exists(f"{tmp}/d/{cfg.simcase}/viz/data.npz")
+        drawn = sorted(os.listdir(f"{tmp}/p/{cfg.simcase}/viz")) if os.path.isdir(
+            f"{tmp}/p/{cfg.simcase}/viz") else []
+    for line in text.getvalue().splitlines():
+        log(f"[viz] run_and_save: {line}")
+    require(saved, "[viz] run_and_save wrote no data")
+    if plots.matplotlib_available():
+        require("log_E.pdf" in drawn, f"[viz] plots drawn: {drawn}")
+    else:
+        require("not drawn: matplotlib is not installed" in text.getvalue() and not drawn,
+                "[viz] run_and_save without matplotlib")
+    log(f"[viz] matplotlib {'present' if plots.matplotlib_available() else 'missing'}: "
+        f"data written, plots {drawn or 'not drawn'}")
+
+
+def run_debug(torch) -> None:
+    """[debug]: the NaN checks on the card: a torch operation's NaN, a NaN
+    position fed to the deposit kernel, and a CUDA-graph capture refused."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    from plasma_control_tpu_torch.io.aot import GraphedStep, control_step_fn
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.ops.kernels.cic import deposit_cic
+    from plasma_control_tpu_torch.utils import debug
+
+    dev = torch.device("cuda")
+
+    def raises(fn, exc, what):
+        try:
+            fn()
+        except exc as err:
+            return str(err)
+        raise SystemExit(f"chip_smoke: FAILED: [debug] {what} did not raise {exc.__name__}")
+
+    with debug.nan_checks():
+        msg_op = raises(lambda: torch.log(torch.full((8,), -1.0, device=dev)), FloatingPointError,
+                        "torch.log of -1 on the card")
+    x = torch.rand(5000, device=dev, generator=torch.Generator(device=dev).manual_seed(1)) * 50.0
+    x[17] = float("nan")
+    silent = deposit_cic(x, 250, 50.0)
+    fns = _kernel_fns()
+    _reset(fns)
+    with debug.nan_checks():
+        msg_kernel = raises(lambda: deposit_cic(x, 250, 50.0), FloatingPointError,
+                            "the deposit kernel on a NaN position")
+    launched = _counts(fns)["deposit_cic"]
+    cfg, ctrl, mpc, grid, act = _setup(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st = init_state(cfg, gen, device=dev)
+    graphed = GraphedStep(control_step_fn(grid, cfg, ctrl, mpc, act))
+    mean = torch.zeros((mpc.horizon, ctrl.n_actions), device=dev)
+    with debug.nan_checks():
+        msg_graph = raises(lambda: graphed.capture(st.x, st.v, mean, gen), RuntimeError,
+                           "GraphedStep.capture")
+    require(launched == 1 and "deposit_cic" in msg_kernel, "[debug] the deposit's own check")
+    require("NaN checks" in msg_graph and graphed.graph is None, "[debug] capture refused")
+    require(not debug.nan_checks_enabled() and _get_current_dispatch_mode() is None,
+            "[debug] checks left on")
+    log(f"[debug] nan_checks on the card: {msg_op!r}; without the checks the deposit kernel "
+        f"drops the NaN position (density sum {float(silent.sum()):.6g} for 4999 particles), "
+        f"with them its launch ({launched}) raises {msg_kernel!r}; capture refused: "
+        f"{msg_graph!r}")
+
+
+def check_twin_tail(torch) -> None:
+    """[twin-tail]: the twin slice's seeded state (seed 0 on the card) rolled
+    500 steps uncontrolled twice on the card, through kernels 2-3 and through
+    the plain scatter deposit: the tails of the last 20 steps side by side,
+    held to the fp32-chaos bound of tests/test_golden.py:137-146 (1 %)."""
+    import dataclasses
+
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.models.rollout import rollout
+
+    dev = torch.device("cuda")
+    cfg, _, _, grid, _ = _twin_setup(torch, dev)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    fns = _kernel_fns()
+    _reset(fns)
+    kernels = rollout(state, grid, cfg).field_energy
+    launches = _counts(fns)
+    plain = rollout(state, grid, dataclasses.replace(cfg, deposit_method="scatter")).field_energy
+    tail_k, tail_p = float(kernels[-20:].mean()), float(plain[-20:].mean())
+    rel = abs(tail_k - tail_p) / tail_p
+    off = torch.nonzero((kernels - plain).abs() > 1e-2 * plain.abs()).flatten()
+    first = int(off[0]) if off.numel() else None
+    log(f"[twin-tail] seeded twin-slice state, {kernels.shape[0]} uncontrolled steps: tail PE "
+        f"(mean of the last 20) {tail_k:.6g} on kernels 2-3, {tail_p:.6g} on the scatter "
+        f"deposit, rel diff {rel:.3g} (fp32-chaos bound 1e-2); first step off by more than 1 %: "
+        f"{first}; launches {launches}")
+    require(launches["deposit_cic"] > 0 and launches["gather_cic"] > 0, "[twin-tail] kernels")
+    require(math.isfinite(tail_k) and math.isfinite(tail_p), "[twin-tail] tails not finite")
+    require(rel <= 1e-2, "[twin-tail] kernels 2-3 and the scatter deposit part beyond fp32 chaos")
+
+
 def timed(fn, *args):
     """``fn(*args)``, logging its wall time (``[phase]``)."""
     t0 = time.perf_counter()
@@ -3202,6 +3707,11 @@ def main() -> int:
     timed(check_new_loops_against_cpu, torch)
     timed(check_rl_against_cpu, torch)
     timed(check_loops_repeat, torch)
+    timed(run_parallel_nccl, torch)
+    timed(run_parallel_ranks, torch)
+    timed(run_viz, torch)
+    timed(run_debug, torch)
+    timed(check_twin_tail, torch)
     log(f"[total] {time.perf_counter() - t_start:.1f} s wall, build included")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -3225,4 +3735,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -5,10 +5,8 @@ The counterpart of :mod:`plasma_control_tpu.cli` for the port's entry points
 :mod:`.cli_rl` ``run_ddpg``, ``run_ppo``, ``run_sac``): the same flags,
 defaults and choices (``base_parser``, ``add_control_args``,
 ``add_mpc_args``, and the segmented-resume flags), the same
-functions that build the configs, the cost traces and the data dump of
-``run_and_save``. The JAX package's ``run_and_save`` also draws the
-reference's plot set; that waits for the port's ``viz`` slice, so here it
-writes the data only.
+functions that build the configs, the cost traces, and ``run_and_save``'s
+data dump and plot set (:mod:`.viz.plots`).
 """
 
 from __future__ import annotations
@@ -236,17 +234,26 @@ def run_and_save(
     costs=None,
     high_idx=None,
     history=None,
+    device="cuda",
 ):
     """Dump one run's data (``data.mat`` and ``data.npz`` under
-    ``<save_file>/<simcase>/<tag>/``) when ``--is_save`` is set; a trainer's
-    per-episode loss and reward ``history`` goes in as the ``history``
-    group (the JAX package plots it instead). The plot set that the JAX
-    package draws into ``<save_plot>`` (``high_idx`` marks the beam there)
-    waits for the port's viz slice."""
+    ``<save_file>/<simcase>/<tag>/``) when ``--is_save`` is set, and draw the
+    JAX package's plot set into ``<save_plot>/<simcase>/<tag>/`` (``high_idx``
+    marks the bump-on-tail beam; the field plots re-solve E on ``device``). A
+    trainer's per-episode loss and reward ``history`` also goes into the data
+    as the ``history`` group.
+
+    Where matplotlib cannot be imported (the GPU machine has none), the data
+    are still written and a line says that the plots were not drawn. That is
+    a missing plotting library, not a device fallback: nothing of the run
+    moves off ``device``."""
     from .io.export import build_run_dict, save_mat, save_npz
+    from .viz import plots as P
 
     filepath = os.path.join(args["save_file"], args["simcase"], tag)
-    mdic = build_run_dict(cfg, np.asarray(snapshot), np.asarray(energy), np.asarray(field_energy),
+    savepath = os.path.join(args["save_plot"], args["simcase"], tag)
+    snapshot = np.asarray(snapshot)
+    mdic = build_run_dict(cfg, snapshot, np.asarray(energy), np.asarray(field_energy),
                           coeff_cos, coeff_sin, costs)
     if history is not None:
         mdic["history"] = {k: np.asarray(v) for k, v in history.items()}
@@ -254,5 +261,33 @@ def run_and_save(
         save_mat(os.path.join(filepath, "data.mat"), mdic)
         save_npz(os.path.join(filepath, "data.npz"), mdic)
         print(f"# saved data: {filepath} (data.mat, data.npz)")
-    print(f"# plots for {os.path.join(args['save_plot'], args['simcase'], tag)} are not drawn: "
-          "the viz slice is not ported yet")
+    if not P.matplotlib_available():
+        print(f"# plots for {savepath} are not drawn: matplotlib is not installed")
+        return
+
+    nt = snapshot.shape[1] - 1
+    dx = cfg.length / cfg.n_mesh
+    if costs and nt > 0:
+        # a resumed run's data covers its own steps, without the state before
+        # the first: its J_ie trace is one entry longer than the others. Every
+        # trace ends at the last step, so each is drawn over its last nt
+        P.plot_cost_over_time(cfg.t_max, nt, {k: np.asarray(v)[-nt:] for k, v in costs.items()},
+                              savepath, "cost.pdf")
+    P.plot_log_e(cfg.t_max, cfg.length, dx, cfg.n_mesh, snapshot, savepath, "log_E.pdf",
+                 device=device)
+    P.plot_e_k_spectrum(cfg.t_max, cfg.length, dx, cfg.n_mesh, snapshot, savepath,
+                        "Ek_spectrum.pdf", device=device)
+    P.plot_e_k_over_time(cfg.t_max, cfg.length, dx, cfg.n_mesh, 5, snapshot, savepath,
+                         "Ek_t.pdf", device=device)
+    if coeff_cos is not None:
+        P.plot_e_k_external_over_time(cfg.t_max, coeff_cos, coeff_sin, savepath,
+                                      "Ek_t_external.pdf")
+    if args["simcase"] == "bump-on-tail":
+        P.plot_bump_on_tail_evolution(snapshot, savepath, "phase_space_evolution.pdf", 0,
+                                      cfg.length, -10.0, 10.0, high_idx)
+    else:  # two-stream and landau: plain phase-space scatter
+        P.plot_two_stream_evolution(snapshot, savepath, "phase_space_evolution.pdf", 0,
+                                    cfg.length, -10.0, 10.0)
+    P.plot_x_dist_evolution(snapshot, savepath, "x_dist.pdf", 0, cfg.length, cfg.n_mesh)
+    P.plot_v_dist_evolution(snapshot, savepath, "v_dist.pdf", -10.0, 10.0, cfg.n_mesh)
+    print(f"# saved plots: {savepath}")

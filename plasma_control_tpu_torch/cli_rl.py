@@ -5,14 +5,15 @@ The counterpart of :mod:`plasma_control_tpu.cli_rl` for
 ``python -m plasma_control_tpu_torch.run_ddpg`` / ``run_ppo`` / ``run_sac``:
 the same weight files (``<save_file>/<simcase>/<algo>-control/<algo>_best``
 and ``_last.msgpack``, flax's layout), the same evaluation from the seeded
-state and the same ``run_and_save`` tag. The JAX package plots the loss and
-reward curves; here they go into the data file's ``history`` group (the
-viz slice is not ported). With ``--optimize``, ``--checkpoint_every`` or
-``--checkpoint_path`` alone turns on the full training-state checkpoint
-(:mod:`.io.resume`): every ``--checkpoint_every`` episodes (default 10)
-into ``--checkpoint_path`` (default
-``<save_file>/<simcase>/<algo>-control/train_ckpt``), resumed from unless
-``--no_resume``.
+state and the same ``run_and_save`` tag. After training, the loss and
+reward curves are drawn into ``<save_plot>/<simcase>/<algo>-control/``
+(``loss_curve.pdf``, ``reward_curve.pdf``) where matplotlib is installed,
+and go into the data file's ``history`` group as well. With
+``--optimize``, ``--checkpoint_every`` or ``--checkpoint_path`` alone turns
+on the full training-state checkpoint (:mod:`.io.resume`): every
+``--checkpoint_every`` episodes (default 10) into ``--checkpoint_path``
+(default ``<save_file>/<simcase>/<algo>-control/train_ckpt``), resumed from
+unless ``--no_resume``.
 """
 
 from __future__ import annotations
@@ -94,6 +95,7 @@ def run_rl(algo: str, args: dict, cfg: SimConfig, ctrl: ControlConfig, hp, devic
         if algo == "ddpg":
             kw.update(save_best=best_path)  # periodic persistence
         ts, best_params, history = train(cfg, ctrl, hp, grid, actuator, gen, **kw)
+        plot_training_curves(args, tag, history)
         actor = actor_of(ts)
         save_params(best_path, best_params)
         save_params(last_path, actor_params_to_numpy(actor))
@@ -115,6 +117,20 @@ def run_rl(algo: str, args: dict, cfg: SimConfig, ctrl: ControlConfig, hp, devic
     save_rollout(tag, args, cfg, ctrl, out, device, history=history)
 
 
+def plot_training_curves(args: dict, tag: str, history: dict) -> None:
+    """The JAX package's loss and reward curves of a training ``history``,
+    where matplotlib is installed (:func:`.cli.run_and_save` says so where it
+    is not)."""
+    from .viz.plots import matplotlib_available, plot_loss_curve
+
+    if not matplotlib_available():
+        return
+    savepath = os.path.join(args["save_plot"], args["simcase"], tag)
+    plot_loss_curve({k: v for k, v in history.items() if k != "reward"}, savepath,
+                    "loss_curve.pdf")
+    plot_loss_curve({"reward": history["reward"]}, savepath, "reward_curve.pdf")
+
+
 def save_rollout(tag: str, args: dict, cfg: SimConfig, ctrl: ControlConfig, out, device,
                  history=None) -> None:
     """Cost traces and the data dump of a ``policy_rollout`` with snapshots."""
@@ -125,5 +141,5 @@ def save_rollout(tag: str, args: dict, cfg: SimConfig, ctrl: ControlConfig, out,
         tag, args, cfg, ctrl, snapshot.cpu().numpy(), out.hamiltonian.cpu().numpy(),
         out.field_energy.cpu().numpy(), coeff_cos=coeffs[:, : ctrl.max_mode].T,
         coeff_sin=coeffs[:, ctrl.max_mode:].T, costs=costs, high_idx=high_indices(cfg),
-        history=history,
+        history=history, device=device,
     )

@@ -55,6 +55,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -71,8 +72,9 @@ from .actuator import FourierActuator, make_actuator
 from .feedback import feedback_coefficients
 from .rl.optim import Adam
 
-__all__ = ["MPCOutput", "candidate_costs", "knot_noise", "ar1_noise", "draw_noise", "plan",
-           "plan_fidelity_check", "twin_targets", "control_step_fn", "closed_loop", "mpc_rollout"]
+__all__ = ["MPCOutput", "candidate_costs", "knot_noise", "ar1_noise", "draw_noise", "solve_noise",
+           "plan", "plan_fidelity_check", "twin_targets", "control_step_fn", "closed_loop",
+           "mpc_rollout"]
 
 
 class MPCOutput(NamedTuple):
@@ -641,9 +643,12 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator, twin_target=Non
     return _finite_or_huge(total)
 
 
-def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, twin_target=None):
+def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, twin_target=None,
+               costs_fn=candidate_costs):
     """MPPI or CEM solve body over handed-in unit-variance noise: (K, H, D)
-    for MPPI, (n_iters, K, H, D) for CEM."""
+    for MPPI, (n_iters, K, H, D) for CEM. ``costs_fn`` scores a candidate
+    block with :func:`candidate_costs`'s signature: that function itself, or
+    its rank-sharded form (:func:`_shard_costs`)."""
     h, d = mean.shape
     fb_seq = None
     if mpc.seed_feedback and mpc.n_candidates >= 2:
@@ -653,7 +658,7 @@ def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, twin_t
         fb_seq = torch.cat([fa, fb]).to(mean.dtype).expand(h, d)
 
     def costs_of(cand):
-        return candidate_costs(state, cand, grid, cfg, mpc, actuator, twin_target)
+        return costs_fn(state, cand, grid, cfg, mpc, actuator, twin_target)
 
     if mpc.algo == "mppi":
         cand = mean[None] + sigma * noise
@@ -752,6 +757,56 @@ def _apply_fidelity_guard(plan_out, full_x, full_cfg, ctrl, mpc):
     )
 
 
+def _check_even(k: int, n_ranks: int, axis: str) -> None:
+    if k % n_ranks:
+        raise ValueError(f"n_candidates={k} must divide evenly over the {axis!r} mesh axis "
+                         f"({n_ranks} ranks)")
+
+
+def _shard_costs(candidate_sharding) -> Callable:
+    """:func:`candidate_costs` with the candidate axis split over the ranks
+    of a one-dimensional ``DeviceMesh``: each rank scores its K/R block,
+    twin targets included, and the (K,) costs are all-gathered in rank
+    order."""
+    group = candidate_sharding.get_group()
+    names = candidate_sharding.mesh_dim_names
+    axis = names[0] if names else "mesh"
+    n_ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def sharded(state, coeff_seqs, grid, cfg, mpc, actuator, twin_target=None):
+        k = coeff_seqs.shape[0]
+        _check_even(k, n_ranks, axis)
+        size = k // n_ranks
+        local = candidate_costs(state, coeff_seqs[rank * size:(rank + 1) * size], grid, cfg,
+                                mpc, actuator, twin_target).contiguous()
+        blocks = [torch.empty_like(local) for _ in range(n_ranks)]
+        dist.all_gather(blocks, local, group=group)
+        return torch.cat(blocks)
+
+    return sharded
+
+
+def _broadcast_noise(noise: torch.Tensor, candidate_sharding) -> torch.Tensor:
+    """A copy of ``noise`` holding the values of the mesh's first rank on
+    every rank, so that all ranks score the same K candidates."""
+    group = candidate_sharding.get_group()
+    noise = noise.clone(memory_format=torch.contiguous_format)
+    dist.broadcast(noise, src=dist.get_global_rank(group, 0), group=group)
+    return noise
+
+
+def solve_noise(generator: Optional[torch.Generator], mpc: MPCConfig,
+                mean: torch.Tensor) -> torch.Tensor:
+    """One solve's unit-variance draws from ``generator``: (K, H, D) for
+    MPPI, (n_iters, K, H, D) for CEM."""
+    if generator is None:
+        raise ValueError("plan needs a torch.Generator or handed-in noise")
+    h, d = mean.shape
+    draws = [draw_noise(generator, mpc, h, d, mean.dtype, mean.device)
+             for _ in range(1 if mpc.algo == "mppi" else mpc.n_iters)]
+    return draws[0] if mpc.algo == "mppi" else torch.stack(draws)
+
+
 def plan(
     state: PlasmaState,
     mean: torch.Tensor,  # (H, 2K) warm-started nominal sequence
@@ -763,6 +818,7 @@ def plan(
     mpc: MPCConfig,
     actuator: FourierActuator,
     noise: Optional[torch.Tensor] = None,
+    candidate_sharding=None,
 ):
     """One MPC solve. Returns (first_action, new_mean, best_cost).
 
@@ -772,7 +828,18 @@ def plan(
     cost under ``plan_correction="twin"``), and the fidelity guard then gates
     the result. ``noise``: optional unit-variance perturbations (antithetic
     pairs included) in place of draws from ``generator``: (K, H, 2K) for
-    MPPI, (n_iters, K, H, 2K) for CEM."""
+    MPPI, (n_iters, K, H, 2K) for CEM.
+
+    ``candidate_sharding``: a one-dimensional ``DeviceMesh`` (e.g.
+    ``mesh["rollout"]`` of :func:`..parallel.mesh.make_mesh`), the
+    counterpart of the JAX package's ``NamedSharding`` over a ``"rollout"``
+    axis. Every rank of it calls ``plan`` alike; the noise is broadcast from
+    its first rank, each rank scores its K/R block of candidates with
+    :func:`candidate_costs` and the (K,) costs are gathered
+    (:func:`_shard_costs`), so every rank returns the same solve. The JAX
+    package refuses its forced Pallas kernels on this path (GSPMD cannot
+    partition them); here every kernel runs on each rank's block, so
+    nothing is refused."""
     if mpc.n_grad_iters > 0:
         _check_differentiable(cfg)
     if mean.shape[-1] != 2 * actuator.max_mode:
@@ -781,13 +848,12 @@ def plan(
             f"{mean.shape[-1] // 2} modes but the actuator was built with "
             f"max_mode={actuator.max_mode}"
         )
-    h, d = mean.shape
     if noise is None:
-        if generator is None:
-            raise ValueError("plan needs a torch.Generator or handed-in noise")
-        draws = [draw_noise(generator, mpc, h, d, mean.dtype, mean.device)
-                 for _ in range(1 if mpc.algo == "mppi" else mpc.n_iters)]
-        noise = draws[0] if mpc.algo == "mppi" else torch.stack(draws)
+        noise = solve_noise(generator, mpc, mean)
+    costs_fn = candidate_costs
+    if candidate_sharding is not None:
+        noise = _broadcast_noise(noise, candidate_sharding)
+        costs_fn = _shard_costs(candidate_sharding)
     full_x, full_cfg = state.x, cfg
     state, grid, cfg = _plan_model(state, grid, cfg, mpc)
     if actuator.n_mesh != grid.n_mesh:
@@ -795,25 +861,27 @@ def plan(
                                    mean.device)
     # noise-floor correction of subsampled planning, once per solve
     target = twin_targets(full_x, state, cfg, full_cfg, ctrl, mpc)
-    out = _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, target)
+    out = _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, target, costs_fn)
     return _apply_fidelity_guard(out, full_x, full_cfg, ctrl, mpc)
 
 
 def control_step_fn(grid: Grid, cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig,
-                    actuator: FourierActuator) -> Callable:
+                    actuator: FourierActuator, candidate_sharding=None) -> Callable:
     """The closed-loop control step with the configuration closed over:
     ``(x, v, mean, generator=None, noise=None) -> (x', v', mean', action,
     pe, ke, ie, best)``. It solves from ``mean`` (``noise``, the unit draws,
     in place of the generator's), applies the first action through one full
     PIC step, records the energies after it and the action's input energy,
-    and shifts the nominal. :func:`mpc_rollout` is :func:`closed_loop` over
-    it."""
+    and shifts the nominal. ``candidate_sharding`` goes to :func:`plan`; the
+    environment step runs in full on every rank.
+    :func:`mpc_rollout` is :func:`closed_loop` over it."""
     sigma = torch.tensor(mpc.sigma0, dtype=grid.e_op.dtype, device=grid.e_op.device)
 
     def ctrl_step(x, v, mean, generator=None, noise=None):
         state = PlasmaState(x, v)
         action, new_mean, best = plan(state, mean, sigma, generator, grid, cfg, ctrl, mpc,
-                                      actuator, noise=noise)
+                                      actuator, noise=noise,
+                                      candidate_sharding=candidate_sharding)
         state = step(state, grid, cfg, actuator.compute_e_packed(action))
         pe, ke = _energies(state, grid, cfg)
         shifted = torch.cat([new_mean[1:], new_mean[-1:]])  # receding horizon: shift, repeat last
@@ -859,18 +927,22 @@ def mpc_rollout(
     n_steps: Optional[int] = None,
     mean0: Optional[torch.Tensor] = None,
     step_noise: Optional[torch.Tensor] = None,
+    candidate_sharding=None,
 ) -> MPCOutput:
     """Closed-loop receding-horizon control for ``n_steps`` env steps.
 
     Each step solves, applies the first action through one full PIC step
     and shifts the nominal (:func:`control_step_fn`). ``step_noise`` (T, K,
     H, 2K), or (T, n_iters, K, H, 2K) for CEM, overrides the per-solve draws
-    (the counterpart of JAX's ``step_keys``)."""
+    (the counterpart of JAX's ``step_keys``). ``candidate_sharding`` splits
+    every solve's candidates over the ranks of a one-dimensional mesh
+    (:func:`plan`)."""
     t_steps = step_noise.shape[0] if step_noise is not None else (
         n_steps if n_steps is not None else cfg.n_steps
     )
     mean = mean0 if mean0 is not None else torch.zeros(
         (mpc.horizon, 2 * ctrl.max_mode), dtype=state.x.dtype, device=state.x.device
     )
-    return closed_loop(control_step_fn(grid, cfg, ctrl, mpc, actuator), state, mean, generator,
-                       t_steps, step_noise)
+    step = control_step_fn(grid, cfg, ctrl, mpc, actuator,
+                           candidate_sharding=candidate_sharding)
+    return closed_loop(step, state, mean, generator, t_steps, step_noise)

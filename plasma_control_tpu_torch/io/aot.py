@@ -52,6 +52,7 @@ from ..control.actuator import FourierActuator, make_actuator
 from ..control.mpc import MPCOutput, closed_loop, control_step_fn, plan
 from ..models.pic import PlasmaState
 from ..ops.grid import Grid, make_grid
+from ..utils.debug import nan_checks_enabled
 
 __all__ = [
     "plan_step_fn",
@@ -114,7 +115,8 @@ class GraphedStep:
     in first. The returned x', v', mean' ARE the static buffers: the next call
     overwrites them, and passing them back costs no copy. Replays draw from
     the generator as the eager steps do, so they match the eager loop
-    bitwise. Handed-in ``noise`` is not captured: it raises."""
+    bitwise. Handed-in ``noise`` is not captured: it raises, and so does a
+    capture while :mod:`..utils.debug`'s NaN checks are on."""
 
     WARMUP = 3  # eager steps before the capture
 
@@ -139,6 +141,10 @@ class GraphedStep:
         if not x.is_cuda or generator is None or generator.device.type != "cuda":
             raise ValueError("GraphedStep captures a CUDA step that draws from a CUDA "
                              "generator")
+        if nan_checks_enabled():
+            raise RuntimeError("GraphedStep cannot capture while the NaN checks are on: each "
+                               "check reads a flag back to the host, which a CUDA graph cannot "
+                               "hold (utils.debug.enable_nan_checks(False) first)")
         self.generator = generator
         self.x, self.v, self.mean = x.clone(), v.clone(), mean.clone()
         start = (x.clone(), v.clone(), mean.clone(), generator.get_state())

@@ -10,11 +10,13 @@ bounds the kernels on the H100 and how they are laid out.
 
 A wrapper runs the plain version for a CPU tensor and the kernel for a CUDA
 tensor (float32, any leading batch shape); any other device raises. Each
-kernel launch adds one to the wrapper's ``launches`` count. Both take any
-positions and wrap them as ``torch.remainder(x, L)`` does, in the kernel and
-in the plain version alike; the deposit also applies a float32 ``scale`` (the
-caller's normalisation), so that a deposit on the card is one device op and
-sums bitwise the same in every launch (fixed-point counts, ``csrc/cic.cu``).
+kernel launch adds one to the wrapper's ``launches`` count; while
+:mod:`...utils.debug`'s NaN checks are on, the wrapper then checks the
+launch's inputs and output. Both take any positions and wrap them as
+``torch.remainder(x, L)`` does, in the kernel and in the plain version alike;
+the deposit also applies a float32 ``scale`` (the caller's normalisation), so
+that a deposit on the card is one device op and sums bitwise the same in
+every launch (fixed-point counts, ``csrc/cic.cu``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import functools
 
 import torch
 
+from ...utils.debug import check_kernel
 from ..deposit import shape_weights_from_offset
 from . import _build
 
@@ -131,6 +134,7 @@ def _deposit_cuda(x, n_mesh, length, kind, scale, cluster):
         _build.call("pct_cic_deposit", index, x.data_ptr(), out.data_ptr(), b, n, n_mesh,
                     length, 1.0 / (length / n_mesh), scale, _KIND_ID[kind], c)
         deposit_cic.launches += 1
+        check_kernel("deposit_cic", (x,), (out,))
     return out
 
 
@@ -182,6 +186,7 @@ def gather_cic(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int, length: float
                     n_mesh, 0 if one_row else n_mesh, length, 1.0 / (length / n_mesh),
                     _KIND_ID[kind])
         gather_cic.launches += 1
+        check_kernel("gather_cic", (e_mesh, x), (out,))
     return out
 
 

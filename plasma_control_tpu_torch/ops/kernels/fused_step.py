@@ -19,8 +19,9 @@ and where the particle state lives.
 
 A wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors (float32); any other device raises. Each kernel launch adds one to
-the wrapper's ``launches`` count. The kernels sum their deposits in integers,
-so two launches on the same inputs return bitwise the same results. Any mesh
+the wrapper's ``launches`` count (and, while :mod:`...utils.debug`'s NaN
+checks are on, has its inputs and outputs checked). The kernels sum their
+deposits in integers, so two launches on the same inputs return bitwise the same results. Any mesh
 size runs: beyond 3631 cells, where the mesh arrays exceed a CTA's shared
 memory, they live in a global scratch that the wrapper allocates
 (:func:`_layout`). Kernel 4 runs rows over a persistent grid with the
@@ -36,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.debug import check_kernel
 from . import _build
 from .cic import _KIND_ID, _check_device, deposit_cic_plain, gather_cic_plain
 
@@ -227,6 +229,7 @@ def _leapfrog_cuda(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0, exact, kind, 
                 _params(n, n_mesh, 1, kind, length, dt, n0), int(exact),
                 int(layout.eop or rows), int(layout.state and not rows))
     fused_leapfrog_step.launches += 1
+    check_kernel("fused_leapfrog_step", (xr, vr, er, eop), (xo, vo, eo))
     return xo.reshape(x.shape), vo.reshape(x.shape), eo.reshape(lead + (n_mesh,))
 
 
@@ -263,6 +266,7 @@ def _horizon_cuda(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0, kind, mer
                 None if scratch is None else scratch.data_ptr(),
                 None if mesh is None else mesh.data_ptr(), k,
                 _params(n, m, h, kind, length, dt, n0), int(merged), int(layout.eop))
+    check_kernel(what, (xc, vc, uc, eop), (pe,))
     return pe
 
 

@@ -26,7 +26,8 @@ cluster cannot hold the state, it lives in a global scratch that the wrapper
 allocates (:func:`scratch_shape`), so every N runs; there the kernel makes
 one pass over the state per step. Km up to 16 runs a compile-time 8 or 16
 modes; Km from 17 to 64 (``_build.MAX_MODES``) runs the kernel's blocked
-variant, 16 modes at a time.
+variant, 16 modes at a time. While :mod:`...utils.debug`'s NaN checks are
+on, the wrapper checks each launch's inputs and output.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils.debug import check_kernel
 from . import _build
 
 __all__ = [
@@ -299,6 +301,7 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     spectral_horizon.launches += 1
     if corrected:
         spectral_horizon.twin_launches += 1
+    check_kernel("spectral_horizon", tensors, (pe,))
     return pe
 
 

@@ -60,7 +60,7 @@ def main(argv=None, device="cuda") -> None:
     run_and_save(
         "feedback", args, cfg, ctrl, snapshot, tr["field_energy"] + tr["kinetic"],
         tr["field_energy"], coeff_cos=coeff_cos, coeff_sin=coeff_sin, costs=costs,
-        high_idx=high_indices(cfg),
+        high_idx=high_indices(cfg), device=device,
     )
 
 

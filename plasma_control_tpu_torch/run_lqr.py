@@ -62,6 +62,7 @@ def main(argv=None, device="cuda") -> None:
         "lqr-control", args, cfg, ctrl, snapshot.cpu().numpy(), replay.hamiltonian.cpu().numpy(),
         replay.field_energy.cpu().numpy(), coeff_cos=coeffs[:, : ctrl.max_mode].T,
         coeff_sin=coeffs[:, ctrl.max_mode:].T, costs=costs, high_idx=high_indices(cfg),
+        device=device,
     )
 
 

@@ -151,7 +151,7 @@ def main(argv=None, device="cuda") -> None:
     run_and_save(
         "mpc-control", args, cfg, ctrl, snapshot.cpu().numpy(), replay.hamiltonian.cpu().numpy(),
         replay.field_energy.cpu().numpy(), coeff_cos=coeff_cos, coeff_sin=coeff_sin,
-        costs=costs, high_idx=high_indices(cfg),
+        costs=costs, high_idx=high_indices(cfg), device=device,
     )
 
 

@@ -51,7 +51,7 @@ def main(argv=None, device="cuda") -> None:
     costs = compute_cost_traces(snapshot, cfg, ctrl, device=device)
 
     run_and_save("wo-oc", args, cfg, ctrl, snapshot, hamiltonian, pe, costs=costs,
-                 high_idx=high_indices(cfg))
+                 high_idx=high_indices(cfg), device=device)
 
 
 if __name__ == "__main__":

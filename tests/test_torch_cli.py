@@ -167,7 +167,7 @@ def test_run_dict_and_dumps_round_trip(tmp_path):
     cli.run_and_save("t", dict(save_file=str(tmp_path / "d"), save_plot=str(tmp_path / "p"),
                                simcase="two-stream", is_save=True),
                      cfg, None, snap, np.ones(4), np.zeros(4), np.ones((2, 3)), np.zeros((2, 3)),
-                     costs)
+                     costs, device="cpu")
     base = tmp_path / "d" / "two-stream" / "t"
     for name in ("data.npz", "data.mat"):
         run = load_run(str(base / name))
