@@ -88,8 +88,10 @@ any failure exits non-zero:
    k. ``bench_scaling.py:96-131``'s controller-damping row at its full
       shapes (bump-on-tail, N=10000, M=128, 300 steps, max_mode 3; MPC
       K=384, H=6, Km=8, w_terminal 4): uncontrolled, feedback and MPC from
-      one seeded state, 300 launches of kernel 1 for MPC; decay-phase gamma,
-      time to stay below 2x the MPC floor and tail PE reported;
+      the reference's own state (the JAX package's, handed across), 300
+      launches of kernel 1 for MPC; the uncontrolled and feedback tail PE
+      within 1 % of SCALING_r05.json's, the MPC tail beside its; decay-phase
+      gamma and time to stay below 2x the MPC floor reported;
    l. ``rollout_batch`` of 8 config-4 states for 20 steps: one launch of
       kernel 2 or 3 per batched deposit or gather (81 and 60), each row
       within 1e-5 relative PE of its single rollout;
@@ -188,7 +190,23 @@ any failure exits non-zero:
       ``GraphedStep`` refuses to capture while it is on;
    e. ``[twin-tail]``: the twin slice's seeded state rolled 500 steps
       uncontrolled through kernels 2-3 and through the scatter deposit, the
-      two last-20 tails side by side (fp32-chaos bound 1 %).
+      two last-20 tails side by side (fp32-chaos bound 1 %);
+8. the reference's baseline, quality and rates:
+   a. ``[native]``: the port's loader builds ``native/pic_ref.cpp`` with g++
+      into ``build/plasma_control_tpu_torch/``; the C++ step and a 20-step
+      rollout at the baseline's shape (N=5000, M=250) against the port's
+      float64 step on the CPU; the C++ steps/s;
+   b. ``[quality]``: config-4 (N=100000, M=256, max_mode 8, 500 steps) from
+      the reference's 8 initial states (the JAX package's, handed across):
+      uncontrolled, each seed's tail PE within 1 % of
+      ``artifacts/results_r5/config4_frontier.json``'s; ``fullfid_K384``
+      (kernel 1) and ``sub10000_K1024_corr_guarded`` (the twin slice, kernel
+      1c) through the captured control step, 8 seeds each, held to the
+      artifact's 8 as distributions (ratio of the means in [2/3, 3/2],
+      Mann-Whitney p >= 0.01); every per-seed number printed;
+   c. ``[timing]``: ``utils/timing.py::mpc_solve_rate`` of the spectral,
+      grid and twin slices and ``fullfid_K384`` at a t=15 state, beside ms
+      per control step eager and replayed.
 
 The last two lines of standard output are one JSON object per kernel
 (launches in its path's run, error against the plain version, times, the
@@ -1858,22 +1876,28 @@ def run_damping(torch, rows: dict) -> None:
     """Phase 4k: bench_scaling.py's "2-controller-damping" row through the
     port at its full shapes (DAMPING_*: bump-on-tail, N=10000, M=128, 300
     steps, max_mode 3; MPC K=384, H=6, Km=8, w_terminal 4; CIC kernels):
-    uncontrolled, feedback and MPC from one seeded state. The decay-phase
-    gamma, the time to stay below 2x the MPC floor and the tail PE (mean of
-    the last 60) are reported, not asserted (one seed); the launch counts
-    and finiteness are asserted."""
+    uncontrolled, feedback and MPC from the reference's own state (the JAX
+    package's ``init_state(cfg, PRNGKey(0))``, handed across in
+    ``diag/quality.py``'s states file). The uncontrolled and feedback runs
+    are deterministic given the state: their tail PE (mean of the last 60,
+    bench_scaling.py:138) is held to SCALING_r05.json's within the fp32-chaos
+    bound (``quality.PAIRED_RTOL``); the MPC tail is reported beside the
+    reference's (one unpaired seed). The decay-phase gamma and the time to
+    stay below 2x the MPC floor are reported; the launch counts and
+    finiteness are asserted."""
     import numpy as np
 
     from plasma_control_tpu_torch.control.feedback import feedback_rollout
     from plasma_control_tpu_torch.control.mpc import mpc_rollout
+    from plasma_control_tpu_torch.diag import quality
     from plasma_control_tpu_torch.diag.landau import damping_rate_decay_phase, time_to_pe_threshold
-    from plasma_control_tpu_torch.models.pic import init_state
     from plasma_control_tpu_torch.models.rollout import rollout
 
     dev = torch.device("cuda")
     cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=DAMPING_SIM, max_mode=DAMPING_MAX_MODE,
                                        mpc=DAMPING_MPC)
-    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    (state,) = quality.reference_states("damping", device=dev)
+    require(state.x.shape == (cfg.n_particles,), "[damping] reference state's shape")
     steps = cfg.n_steps
     fns = _kernel_fns()
     runs, walls = {}, {}
@@ -1904,12 +1928,21 @@ def run_damping(torch, rows: dict) -> None:
             f"launches {launches}")
         runs[name] = pe.cpu().numpy()
     ts = np.linspace(0.0, cfg.t_max, steps)
-    thresh = 2.0 * float(np.mean(runs["mpc"][-60:]))
+    thresh = 2.0 * quality.damping_tail(runs["mpc"])
+    ref = quality.damping_reference()
     for name, pe in runs.items():
         t_below = time_to_pe_threshold(ts, pe, thresh)
         log(f"[damping] {name}: decay-phase gamma {damping_rate_decay_phase(ts, pe):.6g}, time to "
             f"stay below 2x the MPC floor ({thresh:.6g}) {t_below:.4g}, tail PE (mean of last 60) "
-            f"{float(np.mean(pe[-60:])):.6g}")
+            f"{quality.damping_tail(pe):.6g}, reference {ref[name]}")
+    paired = ("uncontrolled", "feedback")
+    gate = quality.paired_gate([quality.damping_tail(runs[n]) for n in paired],
+                               [ref[n] for n in paired])
+    log(f"[damping] paired gate on the reference's state, {' / '.join(paired)}: rel diff "
+        f"{' / '.join(f'{r:.3g}' for r in gate.rel)} (bound {quality.PAIRED_RTOL}); MPC "
+        f"reported, not gated (one unpaired seed)")
+    require(gate.ok, "[damping] uncontrolled or feedback tail PE off the reference's beyond "
+                     "the fp32-chaos bound")
 
 
 def run_batch(torch) -> None:
@@ -3614,6 +3647,276 @@ def check_twin_tail(torch) -> None:
     require(rel <= 1e-2, "[twin-tail] kernels 2-3 and the scatter deposit part beyond fp32 chaos")
 
 
+# experiments/config4_frontier.py's two controlled rows of the port's paths
+# (:68-75, :98-101): full fidelity at K=384, and the twin slice under the
+# default guard; config-4's environment (quality.CONFIG4) on the CIC kernels
+QUALITY_ROWS = (
+    ("fullfid_K384", dict(n_candidates=384, horizon=10, plan_modes=16)),
+    ("sub10000_K1024_corr_guarded", dict(n_candidates=1024, plan_particles=10000,
+                                         plan_correction="twin", horizon=10, plan_modes=16,
+                                         plan_mesh=64)),
+)
+QUALITY_NOISE_SEED = 100  # config4_frontier.py:168,173: seed s draws from cfg.seed + 100 + s
+QUALITY_EAGER_STEPS = 5  # seed 0's first replays held bitwise to eager mpc_rollout steps
+# the C++ baseline's shape (bench.py:399-411: the headline's full-fidelity
+# plan model, N=5000 on 250 cells, L=50, dt 0.1) and its rate's trials
+NATIVE_N, NATIVE_M, NATIVE_L, NATIVE_DT = 5000, 250, 50.0, 0.1
+NATIVE_CHECK_STEPS = 20
+NATIVE_TRIALS, NATIVE_REPS = 5, 100
+# [timing]: solves/s at a t=15 state (config4_frontier.py:185-187: 150
+# uncontrolled steps), beside ms per control step eager and replayed
+TIMING_WARM_STEPS = 150
+TIMING_STEPS = 20
+
+
+def run_native(torch) -> None:
+    """[native]: the port's loader of the C++ reference library
+    (``utils/native.py``) builds ``native/pic_ref.cpp`` with g++ into
+    ``build/plasma_control_tpu_torch/`` of this checkout (timed). At the C++
+    baseline's shape (bench.py:399-411: N=5000, M=250) one ``native_step``
+    and a NATIVE_CHECK_STEPS-step ``native_rollout`` are held to the port's
+    float64 Yoshida-4 step on the CPU at tests/test_native.py's tolerances
+    (x and v rtol = atol = 1e-8, PE 1e-6 relative); then the C++ steps/s as
+    bench.py takes them (the best of NATIVE_TRIALS trials of NATIVE_REPS
+    steps)."""
+    import numpy as np
+
+    from plasma_control_tpu_torch.config import SimConfig
+    from plasma_control_tpu_torch.models.pic import PlasmaState, diagnostics, step
+    from plasma_control_tpu_torch.models.rollout import rollout
+    from plasma_control_tpu_torch.ops.grid import make_grid
+    from plasma_control_tpu_torch.utils import native
+
+    path = native._library_path()
+    built = not path.exists()
+    t0 = time.perf_counter()
+    lib = native.load_library()
+    load_s = time.perf_counter() - t0
+    require(lib is not None, "[native] g++ could not build or load native/pic_ref.cpp")
+    require(path.parent == native.BUILD_DIR and path.is_file(), f"[native] library at {path}")
+    n, m, length, dt = NATIVE_N, NATIVE_M, NATIVE_L, NATIVE_DT
+    rng = np.random.default_rng(0)
+    x, v = rng.uniform(0, length, n), rng.standard_normal(n)
+    cfg = SimConfig(n_particles=n, n_mesh=m, length=length, dt=dt)
+    grid = make_grid(m, length, dtype=torch.float64, device="cpu")
+    state = PlasmaState(torch.tensor(x), torch.tensor(v))
+
+    xn, vn, pe = native.native_step(x.copy(), v.copy(), m, length, dt)
+    st = step(state, grid, cfg)
+    pe_port = float(diagnostics(st, grid, cfg)[2])
+    err = max(float(np.abs(xn - st.x.numpy()).max()), float(np.abs(vn - st.v.numpy()).max()))
+    ok_step = (np.allclose(xn, st.x.numpy(), rtol=1e-8, atol=1e-8)
+               and np.allclose(vn, st.v.numpy(), rtol=1e-8, atol=1e-8)
+               and abs(pe - pe_port) / pe_port < 1e-6)
+    xr, vr, pes = native.native_rollout(x.copy(), v.copy(), m, length, dt, NATIVE_CHECK_STEPS)
+    out = rollout(state, grid, cfg, n_steps=NATIVE_CHECK_STEPS)
+    pe_ref = out.field_energy[1:].numpy()
+    rel = float((np.abs(pes - pe_ref) / pe_ref).max())
+    err_roll = max(float(np.abs(xr - out.final_state.x.numpy()).max()),
+                   float(np.abs(vr - out.final_state.v.numpy()).max()))
+    ok_roll = (rel < 1e-6 and np.allclose(xr, out.final_state.x.numpy(), rtol=1e-8, atol=1e-8)
+               and np.allclose(vr, out.final_state.v.numpy(), rtol=1e-8, atol=1e-8))
+    how = f"built (g++ {' '.join(native.CXX_FLAGS)}) and loaded" if built else "loaded"
+    log(f"[native] {path.relative_to(native.BUILD_DIR.parents[1])}: {how} in {load_s:.2f} s; "
+        f"at N={n}, M={m}: one step against the "
+        f"port's float64 step max |diff| {err:.3g} in x, v (1e-8), PE {pe:.10g} vs "
+        f"{pe_port:.10g}; {NATIVE_CHECK_STEPS}-step rollout PE max rel {rel:.3g} (1e-6), "
+        f"final x, v max |diff| {err_roll:.3g}")
+    require(ok_step, "[native] native_step against the port's float64 step")
+    require(ok_roll, "[native] native_rollout against the port's float64 rollout")
+
+    native.native_step(x.copy(), v.copy(), m, length, dt)  # warm
+    rates = []
+    for _ in range(NATIVE_TRIALS):
+        xt, vt = x.copy(), v.copy()
+        t0 = time.perf_counter()
+        for _ in range(NATIVE_REPS):
+            xt, vt, _ = native.native_step(xt, vt, m, length, dt)
+        rates.append(NATIVE_REPS / (time.perf_counter() - t0))
+    log(f"[native] C++ reference step at N={n}, M={m}, one host core: best {max(rates):.2f} "
+        f"steps/s of {NATIVE_TRIALS} trials of {NATIVE_REPS} ({', '.join(f'{r:.2f}' for r in rates)})")
+
+
+def run_quality(torch) -> None:
+    """[quality]: the port's control quality on the reference's own states,
+    config-4 at its published shapes (two-stream, N=100000, M=256, max_mode
+    8, 500 steps; CIC kernels), against
+    artifacts/results_r5/config4_frontier.json read at run time:
+
+    a. uncontrolled, each of the 8 handed states (``diag/quality.py``):
+       the tail PE (mean of the last fifth of ``field_energy[1:]``) within
+       ``quality.PAIRED_RTOL`` of the artifact's, seed by seed (the runs are
+       deterministic given the state); 4 deposits and 3 gathers per step;
+    b. each of QUALITY_ROWS from the same 8 states, through the control step
+       captured as a CUDA graph (``io/aot.py``; seed 0's first
+       QUALITY_EAGER_STEPS replays bitwise eager ``mpc_rollout``), the MPC
+       noise drawn from a generator seeded cfg.seed + 100 + s (JAX's draws
+       cannot be redrawn, so the rows are compared as distributions): the
+       ratio of the means in ``quality.MEAN_RATIO`` and the two-sided
+       Mann-Whitney p >= ``quality.MIN_P``;
+    c. every trace finite; the wrapper launches of the eager warm-up steps
+       and the captured step as in ``[config-4]`` / ``[twin]`` (one launch
+       of kernel 1, or 1c, per solve, three gathers and at least five
+       deposits per step), none in the replays.
+
+    Every per-seed tail, peak and gamma is printed beside the artifact's
+    before the gates are decided. The damping row's states and gates are
+    ``[damping]``'s."""
+    from plasma_control_tpu_torch.control.mpc import mpc_rollout
+    from plasma_control_tpu_torch.diag import quality
+    from plasma_control_tpu_torch.io.aot import GraphedStep, aot_mpc_rollout, control_step_fn
+    from plasma_control_tpu_torch.models.rollout import rollout
+
+    dev = torch.device("cuda")
+    ref = quality.frontier_reference()
+    states = quality.reference_states("config4", device=dev)
+    require(len(states) == quality.CONFIG4_SEEDS == len(ref["uncontrolled"]),
+            "[quality] one handed state per reference seed")
+    sim = dict(quality.CONFIG4, deposit_method="pallas")
+    fns = _kernel_fns()
+    tails, gates = {}, {}
+
+    cfg, ctrl, _, grid, act = _setup(torch, dev, sim=sim, max_mode=CFG4_MAX_MODE)
+    steps = cfg.n_steps
+    tails["uncontrolled"] = []
+    t0 = time.perf_counter()
+    for s, state in enumerate(states):
+        _reset(fns)
+        pe = rollout(state, grid, cfg).field_energy[1:]
+        launches = _counts(fns)
+        require(pe.shape == (steps,) and bool(torch.isfinite(pe).all()),
+                f"[quality] uncontrolled seed {s}: PE trace")
+        require(launches["deposit_cic"] == 4 * steps + 1 and launches["gather_cic"] == 3 * steps
+                and sum(launches.values()) == 7 * steps + 1,
+                f"[quality] uncontrolled seed {s}: launches {launches}")
+        st = quality.frontier_stats(pe, cfg.t_max, steps)
+        tails["uncontrolled"].append(st["tail_pe"])
+        log(f"[quality] uncontrolled seed {s}: tail PE {st['tail_pe']:.6f} (reference "
+            f"{ref['uncontrolled'][s]}), peak {st['peak_pe']:.6f}, gamma "
+            f"{st['gamma_decay_phase']:.6f}")
+    gates["uncontrolled"] = quality.paired_gate(tails["uncontrolled"], ref["uncontrolled"])
+    log(f"[quality] uncontrolled: {quality.CONFIG4_SEEDS} x {steps} steps in "
+        f"{time.perf_counter() - t0:.2f} s; rel diff per seed "
+        f"{', '.join(f'{r:.3g}' for r in gates['uncontrolled'].rel)} (bound "
+        f"{quality.PAIRED_RTOL}): {'pass' if gates['uncontrolled'].ok else 'FAIL'}")
+
+    calls = GraphedStep.WARMUP + 1  # eager warm-up steps and the captured one
+    for name, mpc_kw in QUALITY_ROWS:
+        cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=sim, max_mode=CFG4_MAX_MODE, mpc=mpc_kw)
+        twin = mpc.plan_correction == "twin"
+        tails[name], walls = [], []
+        for s, state in enumerate(states):
+            graphed = GraphedStep(control_step_fn(grid, cfg, ctrl, mpc, act))
+            noise_seed = cfg.seed + QUALITY_NOISE_SEED + s
+            _reset(fns)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = aot_mpc_rollout(graphed, state, torch.Generator(device=dev).manual_seed(noise_seed),
+                                  steps, mpc.horizon, ctrl.n_actions)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = _counts(fns)
+            want = dict(spectral_horizon=calls, spectral_horizon_twin=calls if twin else 0,
+                        gather_cic=3 * calls, fused_leapfrog_step=0, fused_kdk_horizon=0,
+                        fused_packed_horizon=0)
+            require(all(launches[k] == w for k, w in want.items())
+                    and launches["deposit_cic"] >= 5 * calls,
+                    f"[quality] {name} seed {s}: wrapper launches {launches} for {calls} eager "
+                    f"steps, want {want} and >= {5 * calls} deposits")
+            for what in ("field_energy", "coeffs", "plan_cost", "input_energy"):
+                t = getattr(out, what)
+                require(t.shape[0] == steps and bool(torch.isfinite(t).all()),
+                        f"[quality] {name} seed {s}: {what} not finite")
+            if s == 0:
+                eager = mpc_rollout(state, grid, cfg, ctrl, mpc, act,
+                                    torch.Generator(device=dev).manual_seed(noise_seed),
+                                    n_steps=QUALITY_EAGER_STEPS)
+                k = QUALITY_EAGER_STEPS
+                require(torch.equal(eager.field_energy, out.field_energy[:k])
+                        and torch.equal(eager.coeffs, out.coeffs[:k]),
+                        f"[quality] {name}: the first {k} replays differ from eager steps")
+            st = quality.frontier_stats(out.field_energy, cfg.t_max, steps)
+            tails[name].append(st["tail_pe"])
+            passed = int((out.coeffs != 0).any(-1).sum())
+            log(f"[quality] {name} seed {s}: tail PE {st['tail_pe']:.6f} (reference seed "
+                f"{ref[name][s]}), peak {st['peak_pe']:.6f}, gamma "
+                f"{st['gamma_decay_phase']:.6f}, input energy mean "
+                f"{float(out.input_energy.mean()):.6f}, solves that drove {passed} of {steps}; "
+                f"{walls[-1]:.3f} s ({1e3 * walls[-1] / steps:.4f} ms per step, capture included)")
+        gates[name] = quality.distribution_gate(tails[name], ref[name])
+        mean, ref_mean = statistics.fmean(tails[name]), statistics.fmean(ref[name])
+        log(f"[quality] {name}: tail PE mean {mean:.6f} against the reference's {ref_mean:.6f}, "
+            f"ratio {gates[name].ratio:.4f} (bounds {quality.MEAN_RATIO[0]:.4f}-"
+            f"{quality.MEAN_RATIO[1]:.4f}), Mann-Whitney two-sided p {gates[name].p:.4g} (>= "
+            f"{quality.MIN_P}); the seed-0 first {QUALITY_EAGER_STEPS} replays bitwise eager; "
+            f"{sum(walls):.2f} s: {'pass' if gates[name].ok else 'FAIL'}")
+    log(f"[quality] summary: {json.dumps({n: {'port': tails[n], 'reference': ref[n]} for n in tails})}")
+    failed = [n for n, g in gates.items() if not g.ok]
+    require(not failed, f"[quality] gates failed: {failed}")
+
+
+def run_timing(torch) -> None:
+    """[timing]: ``utils/timing.py::mpc_solve_rate`` (its default chains of
+    2 and 52 warm-started solves, 5 trials) for the spectral, grid and twin
+    slices and config-4's ``fullfid_K384``, each at a t=15 state
+    (TIMING_WARM_STEPS uncontrolled steps from the slice's seeded state; the
+    config-4 rows from the reference's seed-0 state); one launch of the
+    slice's planner kernel per solve asserted. Beside it, ms per control step
+    eager (``control_step_fn``) and replayed (``GraphedStep``) from that
+    state, host clock, the card synchronised each step, TIMING_STEPS steps."""
+    from plasma_control_tpu_torch.diag import quality
+    from plasma_control_tpu_torch.io.aot import GraphedStep, control_step_fn
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.models.rollout import rollout
+    from plasma_control_tpu_torch.utils.timing import mpc_solve_rate
+
+    dev = torch.device("cuda")
+    cfg4 = dict(sim=dict(quality.CONFIG4, deposit_method="pallas"), max_mode=CFG4_MAX_MODE)
+    slices = (("spectral", dict(mpc=MPC), "spectral_horizon"),
+              ("grid", dict(mpc=GRID_MPC), "fused_packed_horizon"),
+              ("twin", dict(cfg4, mpc=TWIN_MPC), "spectral_horizon_twin"),
+              ("fullfid_K384", dict(cfg4, mpc=dict(QUALITY_ROWS)["fullfid_K384"]),
+               "spectral_horizon"))
+    fns = _kernel_fns()
+    r1, r2, trials = 2, 52, 5  # mpc_solve_rate's defaults
+    for name, kw, kernel in slices:
+        cfg, ctrl, mpc, grid, act = _setup(torch, dev, **kw)
+        if cfg.n_particles == quality.CONFIG4["n_particles"]:
+            state = quality.reference_states("config4", device=dev)[0]
+        else:
+            state = init_state(cfg, torch.Generator(device=dev).manual_seed(cfg.seed), device=dev)
+        state = rollout(state, grid, cfg, n_steps=TIMING_WARM_STEPS).final_state
+        _reset(fns)
+        rate = mpc_solve_rate(state, grid, cfg, ctrl, mpc, act, r1, r2, trials, seed=13)
+        solves = r1 + r2 + trials * (r1 + r2)
+        launches = _counts(fns)
+        require(launches[kernel] == solves, f"[timing] {name}: {launches[kernel]} launches of "
+                                            f"{kernel} for {solves} solves")
+        require(math.isfinite(rate["solves_per_s"]) and rate["solves_per_s"] > 0,
+                f"[timing] {name}: no positive slope in {rate['sec_per_solve_all']}")
+
+        gen = torch.Generator(device=dev).manual_seed(14)
+        zero = torch.zeros((mpc.horizon, ctrl.n_actions), device=dev)
+        eager_step = control_step_fn(grid, cfg, ctrl, mpc, act)
+        graphed = GraphedStep(control_step_fn(grid, cfg, ctrl, mpc, act))
+        times = {}
+        for what, fn in (("eager", eager_step), ("replay", graphed)):
+            carry = [state.x, state.v, zero]
+            carry[:] = fn(*carry, gen)[:3]  # warm-up; the graph's capture
+
+            def call(fn=fn, carry=carry):
+                carry[:] = fn(*carry, gen)[:3]
+
+            times[what] = synced_ms(torch, call, TIMING_STEPS)
+        log(f"[timing] {name} (N={cfg.n_particles}, K={mpc.n_candidates}, H={mpc.horizon}) at "
+            f"t={TIMING_WARM_STEPS * cfg.dt:g}: {rate['solves_per_s']:.2f} solves/s (chains of "
+            f"{r1} and {r2} warm-started solves, median of the positive slopes of {trials}: "
+            f"{', '.join(f'{1e3 * t:.4f}' for t in rate['sec_per_solve_all'])} ms per solve); "
+            f"r2-chain wall {rate['wall_chain_s']:.4f} s, first chain {rate['compile_s']:.4f} s; "
+            f"ms per control step: eager {_spread(times['eager'])}, replay "
+            f"{_spread(times['replay'])}")
+
+
 def timed(fn, *args):
     """``fn(*args)``, logging its wall time (``[phase]``)."""
     t0 = time.perf_counter()
@@ -3712,6 +4015,9 @@ def main() -> int:
     timed(run_viz, torch)
     timed(run_debug, torch)
     timed(check_twin_tail, torch)
+    timed(run_native, torch)
+    timed(run_quality, torch)
+    timed(run_timing, torch)
     log(f"[total] {time.perf_counter() - t_start:.1f} s wall, build included")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
