@@ -207,6 +207,24 @@ any failure exits non-zero:
    c. ``[timing]``: ``utils/timing.py::mpc_solve_rate`` of the spectral,
       grid and twin slices and ``fullfid_K384`` at a t=15 state, beside ms
       per control step eager and replayed.
+9. ``[surface]``, the package's library-use path through its top-level names
+   (``plasma_control_tpu_torch``'s ``__all__``, the JAX package's), each with
+   the launch counts set to 0 before it and read after:
+   a. the README's library-use example at its own widths (two-stream,
+      N=10000, M=128): ``rollout`` over ``cfg.n_steps`` as written (the dense
+      deposit, no CIC launch), ``mpc_rollout`` (max_mode 3, K=512, H=10,
+      ``plan_particles`` 2048, ``plan_mesh`` 64) for 20 steps, one launch of
+      kernel 1 per solve, and the same ``rollout`` with
+      ``deposit_method="pallas"``: 4T+1 deposits and 3T gathers, its PE
+      trace within 1 % of the dense one's at every step (the fp32-chaos
+      bound of ``tests/test_golden.py:137-146``);
+   b. ``PIC(preset(name, deposit_method="pallas"))`` for each of the eight
+      presets at its full width (``bench-host`` is config 4,
+      ``bench-multihost`` config 5, N=1M): three steps, each with its
+      electric and total energy, 5 deposits and 3 gathers per step, finite;
+   c. ``initialize_distributed(address, 1, 0)`` with no device type: a
+      one-rank NCCL group, destroyed after;
+   its wall time beside the card's name and power limit.
 
 The last two lines of standard output are one JSON object per kernel
 (launches in its path's run, error against the plain version, times, the
@@ -298,6 +316,15 @@ RL_EPISODES = 2
 # run_ppo's 1000 steps at its dt of 0.05, cut to 500 (t_max 25)
 PPO_T_MAX = 25.0
 GRADREFINE_ITERS, GRADREFINE_SOLVES = 5, 10
+# the README's library-use example (README.md:135-144) at its own widths;
+# its mpc_rollout cut from cfg.n_steps to SURFACE_MPC_STEPS
+SURFACE_SIM = dict(simcase="two-stream", n_particles=10_000, n_mesh=128)
+SURFACE_MAX_MODE = 3
+SURFACE_MPC = dict(n_candidates=512, horizon=10, plan_particles=2048, plan_mesh=64)
+SURFACE_MPC_STEPS = 20
+SURFACE_PRESETS = ("wo-oc", "feedback", "ddpg", "ppo", "sac", "bench-small", "bench-host",
+                   "bench-multihost")
+SURFACE_PIC_STEPS = 3
 RL_CPU_STEPS = 20
 
 # published peaks of one H100 SXM at 700 W: fp32 outside the tensor cores, HBM3
@@ -3917,6 +3944,97 @@ def run_timing(torch) -> None:
             f"{_spread(times['replay'])}")
 
 
+def run_surface(torch, card: str) -> None:
+    """[surface]: the library-use path through the package's top-level
+    names, as a user calls them (phase 9)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    import plasma_control_tpu_torch as pct
+    from plasma_control_tpu_torch.control.actuator import make_actuator
+    from plasma_control_tpu_torch.control.mpc import mpc_rollout
+    from plasma_control_tpu_torch.parallel.launch import initialize_distributed
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    fns = _kernel_fns()
+
+    # (a) the README's example, as written, then with the CIC kernels
+    cfg = pct.SimConfig(**SURFACE_SIM)
+    grid = pct.make_grid(cfg.n_mesh, cfg.length, device=dev)
+    state = pct.init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    _reset(fns)
+    out = pct.rollout(state, grid, cfg)
+    torch.cuda.synchronize()
+    launches = _counts(fns)
+    pe = out.field_energy
+    require(pe.shape == (cfg.n_steps + 1,) and bool(torch.isfinite(pe).all()),
+            "[surface] (a) rollout: PE shape or finiteness")
+    require(not any(launches.values()), f"[surface] (a) the dense rollout launched {launches}")
+    ctrl = pct.ControlConfig(max_mode=SURFACE_MAX_MODE)
+    mpc = pct.MPCConfig(**SURFACE_MPC)
+    act = make_actuator(cfg.length, cfg.n_mesh, ctrl.max_mode, device=dev)
+    _reset(fns)
+    res = mpc_rollout(state, grid, cfg, ctrl, mpc, act, torch.Generator(device=dev).manual_seed(1),
+                      n_steps=SURFACE_MPC_STEPS)
+    torch.cuda.synchronize()
+    launches = _counts(fns)
+    log(f"[surface] (a) README example, {cfg.simcase}, N={cfg.n_particles}, M={cfg.n_mesh}: "
+        f"rollout of {cfg.n_steps} steps (dense), tail PE {float(pe[-cfg.n_steps // 5:].mean()):.6g}; "
+        f"mpc_rollout {SURFACE_MPC_STEPS} steps (max_mode {ctrl.max_mode}, K={mpc.n_candidates}, "
+        f"H={mpc.horizon}, plan {mpc.plan_particles}/{mpc.plan_mesh}): launches {launches}, PE "
+        f"{res.field_energy[0].item():.6g} -> {res.field_energy[-1].item():.6g}")
+    require(launches["spectral_horizon"] == SURFACE_MPC_STEPS and not launches["spectral_horizon_twin"],
+            "[surface] (a) one launch of kernel 1 per solve")
+    require(bool(torch.isfinite(res.field_energy).all()), "[surface] (a) mpc_rollout PE not finite")
+    _reset(fns)
+    out_k = pct.rollout(state, grid, dataclasses.replace(cfg, deposit_method="pallas"))
+    torch.cuda.synchronize()
+    launches = _counts(fns)
+    t_steps = cfg.n_steps
+    rel = ((out_k.field_energy - pe).abs() / pe.abs()).max().item()
+    log(f"[surface] (a) the same rollout on the CIC kernels: launches {launches}; PE max rel "
+        f"diff to the dense trace {rel:.3g} over {t_steps} steps (bound 1e-2)")
+    require(launches["deposit_cic"] == 4 * t_steps + 1 and launches["gather_cic"] == 3 * t_steps,
+            "[surface] (a) 4T+1 deposits and 3T gathers")
+    require(rel < 1e-2, f"[surface] (a) CIC kernels vs dense PE: {rel}")
+
+    # (b) every preset's PIC at its full width, on the CIC kernels
+    for name in SURFACE_PRESETS:
+        cfg = pct.preset(name, deposit_method="pallas")
+        t1 = time.perf_counter()
+        pic = pct.PIC(cfg)
+        _reset(fns)
+        energies = []
+        for _ in range(SURFACE_PIC_STEPS):
+            pic.update_state()
+            energies.append((pic.get_electric_energy().item(), pic.get_energy().item()))
+        launches = _counts(fns)
+        log(f"[surface] (b) PIC(preset({name!r})): N={cfg.n_particles}, M={cfg.n_mesh}, "
+            f"dt={cfg.dt}; {SURFACE_PIC_STEPS} steps, (PE, H) {energies}; launches "
+            f"{launches}; {time.perf_counter() - t1:.2f} s")
+        require(all(math.isfinite(e) for pair in energies for e in pair),
+                f"[surface] (b) {name}: energies not finite")
+        require(launches["deposit_cic"] == 5 * SURFACE_PIC_STEPS
+                and launches["gather_cic"] == 3 * SURFACE_PIC_STEPS,
+                f"[surface] (b) {name}: 5 deposits and 3 gathers per step")
+        del pic
+
+    # (c) the process group: NCCL with no device type given
+    require(not dist.is_initialized(), "[surface] (c) a process group before the phase")
+    try:
+        active = initialize_distributed(f"localhost:{_free_port()}", 1, 0)
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log(f"[surface] (c) initialize_distributed(address, 1, 0): {backend}, multi-process "
+        f"{active}; destroyed")
+    require(backend == "nccl" and active is False, f"[surface] (c) backend {backend}")
+    log(f"[surface] {time.perf_counter() - t0:.1f} s wall on {card}")
+
+
 def timed(fn, *args):
     """``fn(*args)``, logging its wall time (``[phase]``)."""
     t0 = time.perf_counter()
@@ -4018,6 +4136,7 @@ def main() -> int:
     timed(run_native, torch)
     timed(run_quality, torch)
     timed(run_timing, torch)
+    timed(run_surface, torch, card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s wall, build included")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,7 +1,8 @@
 """Configuration dataclasses of the PyTorch port.
 
 A field-for-field twin of :mod:`plasma_control_tpu.config`: the same three
-dataclasses, the same field names and the same defaults. The JAX package's
+dataclasses, the same field names and the same defaults, and the same named
+presets (:func:`preset`). The JAX package's
 ``__init__`` imports jax, which the port must never do, so the port cannot
 import that module and carries this copy instead.
 ``tests/test_torch_config.py`` holds the two equal field by field. The
@@ -18,7 +19,7 @@ from typing import Literal, Optional
 
 SimCase = Literal["two-stream", "bump-on-tail", "landau"]
 
-__all__ = ["SimConfig", "ControlConfig", "MPCConfig"]
+__all__ = ["SimConfig", "ControlConfig", "MPCConfig", "preset"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,3 +150,19 @@ class MPCConfig:
                 "terminal cost instead)",
                 stacklevel=2,
             )
+
+
+def preset(name: str, **overrides) -> SimConfig:
+    """Named presets matching the reference scripts' defaults; ``overrides``
+    replace fields of the named one. An unknown name raises ``KeyError``."""
+    base = {
+        "wo-oc": SimConfig(),
+        "feedback": SimConfig(),
+        "ddpg": SimConfig(),  # run_ddpg.py:27-61
+        "ppo": SimConfig(dt=0.05),  # run_ppo.py:39
+        "sac": SimConfig(n_particles=10000, n_mesh=500),  # run_sac.py:33-35
+        "bench-small": SimConfig(n_particles=10000, n_mesh=64),  # BASELINE config 1
+        "bench-host": SimConfig(n_particles=100000, n_mesh=256),  # BASELINE config 4
+        "bench-multihost": SimConfig(n_particles=1_000_000, n_mesh=256),  # config 5
+    }[name]
+    return dataclasses.replace(base, **overrides) if overrides else base

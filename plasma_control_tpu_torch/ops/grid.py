@@ -65,6 +65,10 @@ class Grid:
     def dx(self) -> float:
         return self.length / self.n_mesh
 
+    def with_dtype(self, dtype) -> "Grid":
+        return dataclasses.replace(self, **{name: getattr(self, name).to(dtype)
+                                            for name in GRID_LEAVES})
+
 
 def grid_from_numpy(n_mesh: int, length: float, device="cuda", dtype=torch.float32,
                     **leaves) -> Grid:

@@ -13,11 +13,13 @@ once, before it builds a mesh (:mod:`.mesh`):
   auto-bootstrap);
 * otherwise it stays single-process and returns ``False``.
 
-The backend follows ``device_type``: NCCL for ``"cuda"``, each process on
-the card of its local rank (``LOCAL_RANK``, else the rank modulo the cards
-of the host), and gloo for ``"cpu"``. Left out, it is ``"cuda"`` where CUDA
-is available, else ``"cpu"``. NCCL takes one card per rank; several ranks
-on one card need a gloo group, which the caller makes with
+The backend follows ``device_type``: NCCL for ``"cuda"`` (the default, as
+for :func:`.mesh.make_mesh`), each process on the card of its local rank
+(``LOCAL_RANK``, else the rank modulo the cards of the host), and gloo for
+``"cpu"``, which the caller asks for by name; any other value is refused.
+There is no fallback: with ``"cuda"`` and no card it raises before any
+process group is made. NCCL takes one card per rank; several ranks on one
+card need a gloo group, which the caller makes with
 ``torch.distributed.init_process_group("gloo", ...)`` before building a mesh.
 """
 
@@ -36,19 +38,24 @@ def initialize_distributed(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
-    device_type: Optional[str] = None,
+    device_type: str = "cuda",
 ) -> bool:
     """Join the process group if one is configured; True if more than one
     process takes part. A no-op returning the same answer once a group
     exists."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"initialize_distributed: device_type {device_type!r} is neither "
+                         "'cuda' nor 'cpu'")
     if dist.is_initialized():
         return dist.get_world_size() > 1
     explicit = coordinator_address is not None or num_processes is not None
     if not explicit and not {"MASTER_ADDR", "RANK", "WORLD_SIZE"} <= set(os.environ):
         return False
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     cuda = device_type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("initialize_distributed: device_type='cuda' needs a CUDA card and "
+                           "none is available; pass device_type='cpu' for a gloo group on "
+                           "the CPU")
     if explicit:
         if coordinator_address is None or num_processes is None or process_id is None:
             raise ValueError("initialize_distributed: pass coordinator_address, num_processes "

@@ -239,7 +239,7 @@ def _rank_main(rank: int, port: str, out_dir: str) -> None:
     from plasma_control_tpu_torch.parallel.launch import initialize_distributed
 
     active = initialize_distributed(coordinator_address=f"127.0.0.1:{port}",
-                                    num_processes=WORLD, process_id=rank)
+                                    num_processes=WORLD, process_id=rank, device_type="cpu")
     data = dict(np.load(os.path.join(out_dir, "inputs.npz")))
     checks = _rank_checks(rank, data)
     arrays, errors = {}, {"initialize_distributed": active}
@@ -370,20 +370,45 @@ def test_initialize_distributed_joins_the_group(ranks):
 
 def test_backend_follows_device_type():
     """The backend is chosen by the device the caller asks for, not by the
-    machine: device_type="cpu" makes a gloo group even where CUDA is present."""
+    machine: device_type="cpu" makes a gloo group even where CUDA is present;
+    a device type other than "cuda" and "cpu" (a numbered card) is refused."""
     import torch.distributed as dist
 
     from plasma_control_tpu_torch.parallel.launch import initialize_distributed
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    assert initialize_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
-                                  process_id=0, device_type="cpu") is False
+    call = dict(coordinator_address=f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0)
+    with pytest.raises(ValueError, match="'cuda:0'"):
+        initialize_distributed(**call, device_type="cuda:0")
+    assert not dist.is_initialized()
+    assert initialize_distributed(**call, device_type="cpu") is False
     try:
         assert dist.get_backend() == "gloo"
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("route", ["torchrun", "explicit"])
+def test_initialize_distributed_needs_a_card(monkeypatch, route):
+    """With no card and no device_type, initialize_distributed raises before
+    any process group is made, under torchrun's variables and with explicit
+    arguments alike: it never falls to the CPU unless asked."""
+    import torch
+    import torch.distributed as dist
+
+    from plasma_control_tpu_torch.parallel.launch import initialize_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    port = _free_port()
+    if route == "torchrun":
+        for key, value in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                               MASTER_PORT=str(port)).items():
+            monkeypatch.setenv(key, value)
+        call = dict()
+    else:
+        call = dict(coordinator_address=f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        initialize_distributed(**call)
+    assert not dist.is_initialized()
 
 
 def test_single_process_is_noop(monkeypatch):
