@@ -68,6 +68,7 @@ from ..ops.grid import Grid, cached_grid
 from ..ops.integrate import yoshida4_coefficients
 from ..ops.kernels.fused_step import fused_leapfrog_step, fused_packed_horizon
 from ..ops.kernels.spectral_horizon import spectral_horizon, use_rot
+from ..utils import trace
 from .actuator import FourierActuator, make_actuator
 from .feedback import feedback_coefficients
 from .rl.optim import Adam
@@ -621,22 +622,25 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator, twin_target=Non
         )
     if mpc.plan_model == "grid":
         _reject_grid_pallas_kernel(mpc.plan_kernel)
-        if mpc.plan_integrator == "kdk":
-            return _horizon_cost_kdk(state, coeff_seqs, grid, cfg, mpc, actuator)
-        return _horizon_cost_steps(state, coeff_seqs, grid, cfg, mpc, actuator)
+        with trace.span("plan.kernel"):
+            if mpc.plan_integrator == "kdk":
+                return _horizon_cost_kdk(state, coeff_seqs, grid, cfg, mpc, actuator)
+            return _horizon_cost_steps(state, coeff_seqs, grid, cfg, mpc, actuator)
     ka = actuator.max_mode
     km = max(int(mpc.plan_modes), ka)
     if not state.x.is_cuda and mpc.plan_kernel != "fused":
-        return _horizon_cost_spectral(state, coeff_seqs, cfg, mpc, actuator, twin_target)
+        with trace.span("plan.kernel"):  # the kernel's op-by-op counterpart
+            return _horizon_cost_spectral(state, coeff_seqs, cfg, mpc, actuator, twin_target)
     # "xla" names the op-by-op scan, whose drift is trig; on the card it runs
     # as the kernel's trig variant
     drift = "trig" if mpc.plan_kernel == "xla" else mpc.spectral_drift
     tc, ts = (None, None) if twin_target is None else twin_target
-    pe = spectral_horizon(
-        state.x, state.v, coeff_seqs[..., :ka], coeff_seqs[..., ka:], n_modes=km,
-        length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, n_particles=cfg.n_particles,
-        rot=use_rot(cfg.clamped_dt(), cfg.length, drift), twin_c=tc, twin_s=ts,
-    )  # (K, H) post-drift spectral-model PE, corrected with a target
+    with trace.span("plan.kernel"):
+        pe = spectral_horizon(
+            state.x, state.v, coeff_seqs[..., :ka], coeff_seqs[..., ka:], n_modes=km,
+            length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, n_particles=cfg.n_particles,
+            rot=use_rot(cfg.clamped_dt(), cfg.length, drift), twin_c=tc, twin_s=ts,
+        )  # (K, H) post-drift spectral-model PE, corrected with a target
     pe = _pe_factor(cfg, mpc) * pe
     ie = actuator.input_energy(coeff_seqs)  # (K, H)
     total = _add_terminal(torch.sum(mpc.w_field * pe + mpc.w_input * ie, dim=-1), pe, mpc)
@@ -653,12 +657,15 @@ def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, twin_t
     fb_seq = None
     if mpc.seed_feedback and mpc.n_candidates >= 2:
         # phase-conjugate expert action at the current state, held over the horizon
-        dens = deposit(state.x, grid, n0=cfg.n0, kind=cfg.interpol, method=cfg.deposit_method)
-        fa, fb = feedback_coefficients(solve_e_mesh(dens, grid, cfg.n0), ctrl.max_mode)
-        fb_seq = torch.cat([fa, fb]).to(mean.dtype).expand(h, d)
+        with trace.span("plan.seed"):
+            dens = deposit(state.x, grid, n0=cfg.n0, kind=cfg.interpol,
+                           method=cfg.deposit_method)
+            fa, fb = feedback_coefficients(solve_e_mesh(dens, grid, cfg.n0), ctrl.max_mode)
+            fb_seq = torch.cat([fa, fb]).to(mean.dtype).expand(h, d)
 
     def costs_of(cand):
-        return costs_fn(state, cand, grid, cfg, mpc, actuator, twin_target)
+        with trace.span("plan.costs"):
+            return costs_fn(state, cand, grid, cfg, mpc, actuator, twin_target)
 
     if mpc.algo == "mppi":
         cand = mean[None] + sigma * noise
@@ -667,9 +674,10 @@ def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, twin_t
             cand[1] = fb_seq
         cand = torch.clamp(cand, ctrl.coeff_min, ctrl.coeff_max)
         costs = costs_of(cand)
-        best = torch.min(costs)
-        w = torch.softmax(-(costs - best) / mpc.temperature, dim=0)
-        mu = torch.einsum("k,khd->hd", w, cand)
+        with trace.span("plan.update"):
+            best = torch.min(costs)
+            w = torch.softmax(-(costs - best) / mpc.temperature, dim=0)
+            mu = torch.einsum("k,khd->hd", w, cand)
     else:  # CEM: refit mean and spread to the n_elites cheapest, n_iters times
         mu = mean
         sd = torch.broadcast_to(torch.as_tensor(sigma, dtype=mean.dtype, device=mean.device),
@@ -680,10 +688,11 @@ def _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, twin_t
             if fb_seq is not None:
                 cand[1] = torch.clamp(fb_seq, ctrl.coeff_min, ctrl.coeff_max)
             costs = costs_of(cand)
-            elites = cand[torch.topk(-costs, mpc.n_elites).indices]
-            mu = elites.mean(dim=0)
-            sd = elites.std(dim=0, correction=0) + 1e-3
-            best = torch.min(costs)
+            with trace.span("plan.update"):
+                elites = cand[torch.topk(-costs, mpc.n_elites).indices]
+                mu = elites.mean(dim=0)
+                sd = elites.std(dim=0, correction=0) + 1e-3
+                best = torch.min(costs)
     if mpc.n_grad_iters > 0:
         mu = _gradient_refine(state, mu, grid, cfg, ctrl, mpc, actuator)
     return mu[0], mu, best
@@ -848,21 +857,27 @@ def plan(
             f"{mean.shape[-1] // 2} modes but the actuator was built with "
             f"max_mode={actuator.max_mode}"
         )
-    if noise is None:
-        noise = solve_noise(generator, mpc, mean)
-    costs_fn = candidate_costs
-    if candidate_sharding is not None:
-        noise = _broadcast_noise(noise, candidate_sharding)
-        costs_fn = _shard_costs(candidate_sharding)
-    full_x, full_cfg = state.x, cfg
-    state, grid, cfg = _plan_model(state, grid, cfg, mpc)
-    if actuator.n_mesh != grid.n_mesh:
-        actuator = _actuator_cache(cfg.length, grid.n_mesh, actuator.max_mode, mean.dtype,
-                                   mean.device)
-    # noise-floor correction of subsampled planning, once per solve
-    target = twin_targets(full_x, state, cfg, full_cfg, ctrl, mpc)
-    out = _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, target, costs_fn)
-    return _apply_fidelity_guard(out, full_x, full_cfg, ctrl, mpc)
+    with trace.span("plan"):
+        if noise is None:
+            with trace.span("plan.noise"):
+                noise = solve_noise(generator, mpc, mean)
+        costs_fn = candidate_costs
+        if candidate_sharding is not None:
+            noise = _broadcast_noise(noise, candidate_sharding)
+            costs_fn = _shard_costs(candidate_sharding)
+        full_x, full_cfg = state.x, cfg
+        with trace.span("plan.model"):
+            state, grid, cfg = _plan_model(state, grid, cfg, mpc)
+            if actuator.n_mesh != grid.n_mesh:
+                actuator = _actuator_cache(cfg.length, grid.n_mesh, actuator.max_mode,
+                                           mean.dtype, mean.device)
+        # noise-floor correction of subsampled planning, once per solve
+        with trace.span("plan.twin_targets"):
+            target = twin_targets(full_x, state, cfg, full_cfg, ctrl, mpc)
+        out = _plan_impl(state, mean, sigma, noise, grid, cfg, ctrl, mpc, actuator, target,
+                         costs_fn)
+        with trace.span("plan.guard"):
+            return _apply_fidelity_guard(out, full_x, full_cfg, ctrl, mpc)
 
 
 def control_step_fn(grid: Grid, cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig,
@@ -878,14 +893,18 @@ def control_step_fn(grid: Grid, cfg: SimConfig, ctrl: ControlConfig, mpc: MPCCon
     sigma = torch.tensor(mpc.sigma0, dtype=grid.e_op.dtype, device=grid.e_op.device)
 
     def ctrl_step(x, v, mean, generator=None, noise=None):
-        state = PlasmaState(x, v)
-        action, new_mean, best = plan(state, mean, sigma, generator, grid, cfg, ctrl, mpc,
-                                      actuator, noise=noise,
-                                      candidate_sharding=candidate_sharding)
-        state = step(state, grid, cfg, actuator.compute_e_packed(action))
-        pe, ke = _energies(state, grid, cfg)
-        shifted = torch.cat([new_mean[1:], new_mean[-1:]])  # receding horizon: shift, repeat last
-        return state.x, state.v, shifted, action, pe, ke, actuator.input_energy(action), best
+        with trace.span("control_step"):
+            state = PlasmaState(x, v)
+            action, new_mean, best = plan(state, mean, sigma, generator, grid, cfg, ctrl, mpc,
+                                          actuator, noise=noise,
+                                          candidate_sharding=candidate_sharding)
+            with trace.span("env_step"):
+                state = step(state, grid, cfg, actuator.compute_e_packed(action))
+            with trace.span("energies"):
+                pe, ke = _energies(state, grid, cfg)
+            # receding horizon: shift, repeat last
+            shifted = torch.cat([new_mean[1:], new_mean[-1:]])
+            return state.x, state.v, shifted, action, pe, ke, actuator.input_energy(action), best
 
     return ctrl_step
 
@@ -900,6 +919,7 @@ def closed_loop(ctrl_step: Callable, state: PlasmaState, mean: torch.Tensor,
     x, v = state
     cols = []
     for i in range(n_steps):
+        trace.next_step()
         noise = None if step_noise is None else step_noise[i]
         x, v, mean, action, pe, ke, ie, best = ctrl_step(x, v, mean, generator, noise)
         cols.append((pe, ke, action, ie, best))

@@ -52,6 +52,7 @@ from ..control.actuator import FourierActuator, make_actuator
 from ..control.mpc import MPCOutput, closed_loop, control_step_fn, plan
 from ..models.pic import PlasmaState
 from ..ops.grid import Grid, make_grid
+from ..utils import trace
 from ..utils.debug import nan_checks_enabled
 
 __all__ = [
@@ -156,31 +157,36 @@ class GraphedStep:
 
         side = torch.cuda.Stream(device=x.device)
         side.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(side):
+        with trace.span("graph.warmup"), torch.cuda.stream(side):
             for _ in range(self.WARMUP):
                 self._body()
         torch.cuda.current_stream(x.device).wait_stream(side)
         rewind()
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph):
+        with trace.span("graph.capture"), torch.cuda.graph(self.graph):
             self.out = self._body()
+        trace.count("graph.captures")
         rewind()
 
     def __call__(self, x, v, mean, generator=None, noise=None):
-        if noise is not None:
-            raise ValueError("the captured step draws its noise from its generator")
-        if self.graph is None:
-            self.capture(x, v, mean, generator)
-        elif generator is not self.generator:
-            raise ValueError("the captured step draws from the generator it was captured with")
-        for dst, src in ((self.x, x), (self.v, v), (self.mean, mean)):
-            if src is not dst:
-                dst.copy_(src)
-        self.graph.replay()
-        out = self.out.clone()
-        d = out.shape[0] - 4
-        return self.x, self.v, self.mean, out[:d], out[d], out[d + 1], out[d + 2], out[d + 3]
+        with trace.span("graphed_step"):
+            if noise is not None:
+                raise ValueError("the captured step draws its noise from its generator")
+            if self.graph is None:
+                self.capture(x, v, mean, generator)
+            elif generator is not self.generator:
+                raise ValueError("the captured step draws from the generator it was captured "
+                                 "with")
+            for dst, src in ((self.x, x), (self.v, v), (self.mean, mean)):
+                if src is not dst:
+                    dst.copy_(src)
+            with trace.span("graph.replay"):
+                self.graph.replay()
+            trace.count("graph.replays")
+            out = self.out.clone()
+            d = out.shape[0] - 4
+            return self.x, self.v, self.mean, out[:d], out[d], out[d + 1], out[d + 2], out[d + 3]
 
 
 def _fingerprint(grid: Grid, cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig,
