@@ -29,7 +29,11 @@ any failure exits non-zero:
    variant at the twin slice's plan model (K=1024, H=10, Km=16, N=10000)
    with both drifts, at
    N=20000, and the trig drift's zero-drive identity against the twin
-   trajectory; kernel 1's global-scratch variant, both energies and drifts,
+   trajectory; kernel 7, the twin-corrected solve's targets, at the twin
+   slice's shapes (N=100000, a stride-10 plan subsample, H=10, Km=16)
+   against its plain version in float32 and float64, one device op per
+   call and bitwise equal over two launches; kernel 1's global-scratch
+   variant, both energies and drifts,
    at N=320000, beyond what a cluster of 16 CTAs holds; two launches of
    kernel 1 bitwise equal; the gather beside ``grid_sample``, the one
    PyTorch call that computes it; kernel 1 and its corrected variant beyond
@@ -395,6 +399,21 @@ def spectral_bytes(k: int, h: int, n: int, km: int, twin: bool) -> float:
     """x0, v0 and u_c, u_s (K, H, Km) in, the (H, Km) targets in for the
     corrected variant, (K, H) energies out."""
     return 4 * (2 * n + 2 * k * h * km + (2 * h * km if twin else 0) + k * h)
+
+
+def twin_ops(n_full: int, n: int, h: int, km: int) -> float:
+    """Operations of the twin-corrected solve's targets (kernel 7,
+    csrc/twin_trajectory.cu): the full state's angle, sincosf, harmonic
+    recurrence and mode sums once per particle (6 Km); the plan state's
+    prologue (the same, then the field, 4 Km, and the half kick, 2) and per
+    step its trig drift (8), recurrence and sums, field and kick (10 Km + 7);
+    the shrinkage and the (H, Km) products are left out."""
+    return n_full * 6 * km + n * (10 * km + 2) + h * n * (10 * km + 7)
+
+
+def twin_bytes(n_full: int, n: int, h: int, km: int) -> float:
+    """full_x and the plan state's x0, v0 in, the (H, Km) targets out."""
+    return 4 * (n_full + 2 * n + 2 * h * km)
 
 
 def solve_ops(m: int) -> float:
@@ -891,6 +910,7 @@ def _kernel_fns() -> dict:
     from plasma_control_tpu_torch.ops.kernels import cic
     from plasma_control_tpu_torch.ops.kernels import fused_step as fs
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+    from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
 
     return {"deposit_cic": (cic.deposit_cic, "launches"),
             "gather_cic": (cic.gather_cic, "launches"),
@@ -898,7 +918,8 @@ def _kernel_fns() -> dict:
             "spectral_horizon_twin": (sh.spectral_horizon, "twin_launches"),
             "fused_leapfrog_step": (fs.fused_leapfrog_step, "launches"),
             "fused_kdk_horizon": (fs.fused_kdk_horizon, "launches"),
-            "fused_packed_horizon": (fs.fused_packed_horizon, "launches")}
+            "fused_packed_horizon": (fs.fused_packed_horizon, "launches"),
+            "twin_trajectory": (tt.twin_trajectory, "launches")}
 
 
 def _reset(fns: dict) -> None:
@@ -1506,8 +1527,9 @@ def run_twin_km32(torch, rows: dict) -> None:
         require(bool(torch.isfinite(out.field_energy).all()), "twin Km=32: PE not finite")
     launches = _counts(fns)
     rows["spectral_horizon_twin_km32"]["launches"] = launches["spectral_horizon_twin"]
-    require(launches["spectral_horizon_twin"] == launches["spectral_horizon"] == 3,
-            f"one corrected launch per solve: {launches}")
+    require(launches["spectral_horizon_twin"] == launches["spectral_horizon"]
+            == launches["twin_trajectory"] == 3,
+            f"one corrected launch and one twin_trajectory launch per solve: {launches}")
     pst, _, pcfg, mpc, (tc, ts), _ = _twin_plan(torch, state, dev, plan_modes=32)
     ka, km = ctrl.max_mode, max(mpc.plan_modes, ctrl.max_mode)
     k, h, n = mpc.n_candidates, mpc.horizon, pcfg.n_particles
@@ -1623,11 +1645,13 @@ def _twin_plan(torch, state, device, **mpc_kw):
 
 def check_twin_kernel(torch, rows: dict) -> None:
     """Phase 3, third part: kernel 1's twin-corrected variant against its
-    plain version at the twin slice's plan model and at N=20000, timed; and
-    the zero-drive identity on the trig drift."""
+    plain version at the twin slice's plan model and at N=20000, timed;
+    kernel 7, the targets, against its plain version at the slice's shapes,
+    timed; and the zero-drive identity on the trig drift."""
     from plasma_control_tpu_torch.control.mpc import _pad_modes, _twin_mode_traj, draw_noise
     from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+    from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1688,6 +1712,39 @@ def check_twin_kernel(torch, rows: dict) -> None:
     # kernel 2 at the twin slice's environment: N=100000, M=256
     check_deposit(torch, rows, "deposit_cic_twin", cfg.n_particles, cfg.n_mesh, cfg.length, gen)
 
+    # kernel 7, the targets themselves, at the slice's shapes (N=100000, its
+    # stride-10 plan subsample): against the plain version in float32 and,
+    # as the sums are added in another order, no further from the float64
+    # plain version than twice the float32 one
+    tkw = dict(n_modes=km, horizon=h, length=pcfg.length, dt=pcfg.clamped_dt(), n0=pcfg.n0,
+               n_full=cfg.n_particles, n_plan=n)
+    twin_call = lambda: tt.twin_trajectory(state.x, pst.x, pst.v, **tkw)  # noqa: E731
+    plain_call = lambda: tt.twin_trajectory_plain(state.x, pst.x, pst.v, **tkw)  # noqa: E731
+    got, ref = twin_call(), plain_call()
+    ref64 = tt.twin_trajectory_plain(state.x.double(), pst.x.double(), pst.v.double(), **tkw)
+    top = max(float(t.abs().max()) for t in ref)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    err64, plain64 = (max(float((a.double() - b).abs().max()) for a, b in zip(side, ref64))
+                      for side in (got, ref))
+    require(err64 <= 2.0 * plain64, f"twin_trajectory: {err64} from float64, plain {plain64}")
+    require(all(torch.equal(a, b) for a, b in zip(got, twin_call())),
+            "twin_trajectory: two launches differ")
+    dev_ms, ops = device_ms(torch, twin_call, "twin_trajectory_kernel", reps=20)
+    require(ops == 1, f"twin_trajectory: {ops:.3g} device ops per call")
+    rows["twin_trajectory"].update(
+        max_abs_err=err, device_ms=dev_ms, ms=time_ms(torch, twin_call),
+        plain_ms=time_ms(torch, plain_call, reps=10), library_ms=None,
+        **bound(twin_ops(cfg.n_particles, n, h, km), twin_bytes(cfg.n_particles, n, h, km)),
+    )
+    b = rows["twin_trajectory"]
+    log(f"[kernels] twin_trajectory at the twin slice (N={cfg.n_particles}, n={n} at stride "
+        f"{pst.x.stride(0)}, H={h}, Km={km}, {tt.launch_geometry(cfg.n_particles, n)}): max "
+        f"|err| {err:.3g}, max rel {err / top:.3g} of the largest target {top:.6g}; from float64 "
+        f"{err64:.3g} against the float32 plain version's {plain64:.3g} (bar: twice); kernel "
+        f"{b['ms']:.4f} ms, device {dev_ms:.5f} ms per launch, bound {b['bound_ms']:.6f} ms "
+        f"({b['bound_by']}) = {100 * b['bound_ms'] / dev_ms:.2f} %, plain {b['plain_ms']:.4f} ms; "
+        f"one device op per call, two launches bitwise equal")
+
     # zero drive on the trig drift, where the kernel's drift is the twin's:
     # the candidate's phasor is the twin's (c0, s0), the target rho (c0, s0),
     # so its corrected energy is pe_scale sum_m lambda_m^2 (c0^2 + s0^2) / k_m^2.
@@ -1709,8 +1766,8 @@ def check_twin_kernel(torch, rows: dict) -> None:
     rel = float(((got.double() - want).abs() / want.abs()).max())
     require(rel <= 1e-4, f"zero-drive identity: max rel {rel}")
     log(f"[kernels] spectral_horizon_twin trig, zero drive at a coherent state (lambda_1 "
-        f"{float(lam[0]):.6f}): corrected PE = pe_scale sum lambda^2 (c0^2 + s0^2) / k^2 to max rel "
-        f"{rel:.3g} (rtol 1e-4)")
+        f"{float(lam[0]):.6f}), the targets from twin_trajectory: corrected PE = pe_scale sum "
+        f"lambda^2 (c0^2 + s0^2) / k^2 to max rel {rel:.3g} (rtol 1e-4)")
 
 
 def check_global_scratch(torch) -> None:
@@ -1787,9 +1844,11 @@ def run_twin_slice(torch, rows: dict) -> None:
     rows["spectral_horizon_twin"]["launches"] = launches["spectral_horizon_twin"]
     rows["deposit_cic_twin"]["launches"] = launches["deposit_cic"]
     rows["gather_cic_100k"]["launches"] = launches["gather_cic"]
+    rows["twin_trajectory"]["launches"] = launches["twin_trajectory"]
     log(f"[twin] {steps} control steps; kernel launches in the controlled run: {launches}")
-    require(launches["spectral_horizon"] == launches["spectral_horizon_twin"] == steps,
-            "one corrected spectral_horizon launch per solve")
+    require(launches["spectral_horizon"] == launches["spectral_horizon_twin"]
+            == launches["twin_trajectory"] == steps,
+            "one corrected spectral_horizon launch and one twin_trajectory launch per solve")
     require(launches["fused_leapfrog_step"] == launches["fused_kdk_horizon"]
             == launches["fused_packed_horizon"] == 0, "no grid planner kernel")
     require(launches["gather_cic"] == 3 * steps, "three gathers per Yoshida-4 step")
@@ -1838,8 +1897,10 @@ def run_entry_point(torch) -> None:
         run = load_run(f"{tmp}/data/two-stream/mpc-control/data.npz")
     log(f"[entry] python -m plasma_control_tpu_torch.run_mpc {' '.join(argv[:-4])} ...: "
         f"{wall:.3f} s wall (closed loop, replay, cost traces, saving); launches {launches}")
-    require(launches["spectral_horizon"] == launches["spectral_horizon_twin"] == ENTRY_STEPS,
-            "one corrected spectral_horizon launch per solve of the entry point")
+    require(launches["spectral_horizon"] == launches["spectral_horizon_twin"]
+            == launches["twin_trajectory"] == ENTRY_STEPS,
+            "one corrected spectral_horizon and one twin_trajectory launch per solve of the "
+            "entry point")
     require(run["snapshot"].shape == (2 * CFG4_SIM["n_particles"], ENTRY_STEPS + 1),
             f"snapshot shape {run['snapshot'].shape}")
     require(bool(np.isfinite(run["PE"]).all()), "entry point: PE not finite")
@@ -4090,6 +4151,9 @@ def main() -> int:
         "spectral_horizon_dagger": dict(
             source="plasma_control_tpu_torch/csrc/spectral_horizon.cu",
             replaces="plasma_control_tpu/ops/pallas/spectral_horizon.py:303"),
+        "twin_trajectory": dict(
+            source="plasma_control_tpu_torch/csrc/twin_trajectory.cu",
+            replaces="none: plasma_control_tpu/control/mpc.py::twin_targets, in XLA ops"),
     }
     timed(check_kernels, torch, rows)
     timed(check_grid_kernels, torch, rows)

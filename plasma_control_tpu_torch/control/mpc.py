@@ -8,7 +8,9 @@ control step:
 1. reduce the plan model when ``plan_particles`` / ``plan_mesh`` ask for it
    (strided particle subsample, coarser plan grid and actuator);
 2. with ``plan_correction="twin"`` and a subsampled plan state, the (H, Km)
-   noise-correction targets of :func:`twin_targets`, once per solve;
+   noise-correction targets of :func:`twin_targets`, once per solve (on CUDA
+   tensors one launch of the twin trajectory kernel,
+   :mod:`..ops.kernels.twin_trajectory`);
 3. seed the candidate pool with the phase-conjugate feedback action
    (deposit, circulant solve, FFT) at the plan state;
 4. sample K antithetic candidates around the nominal (knot-interpolated by
@@ -68,6 +70,8 @@ from ..ops.grid import Grid, cached_grid
 from ..ops.integrate import yoshida4_coefficients
 from ..ops.kernels.fused_step import fused_leapfrog_step, fused_packed_horizon
 from ..ops.kernels.spectral_horizon import spectral_horizon, use_rot
+from ..ops.kernels.twin_trajectory import (mode_eval, mode_sums, twin_rollout_plain,
+                                           twin_trajectory)
 from ..utils import trace
 from .actuator import FourierActuator, make_actuator
 from .feedback import feedback_coefficients
@@ -140,7 +144,7 @@ def _fidelity_ratio(x: torch.Tensor, cfg: SimConfig, ctrl: ControlConfig,
     km = max(int(mpc.plan_modes), ctrl.max_mode)
     k = (2.0 * math.pi / cfg.length) * torch.arange(1, km + 1, dtype=x.dtype, device=x.device)
     t = (2.0 * math.pi / cfg.length) * x.reshape(-1)
-    c, s = _mode_sums(torch.cos(t), torch.sin(t), km)
+    c, s = mode_sums(torch.cos(t), torch.sin(t), km)
     modal = (cfg.n0**2 / n) * (c * c + s * s) / (k * k)
     floor_full = cfg.n0**2 / (k * k)
     frac = _plan_frac(cfg, mpc)
@@ -443,34 +447,6 @@ def draw_noise(gen, mpc: MPCConfig, horizon: int, dim: int, dtype=torch.float32,
     return base(k)
 
 
-def _mode_sums(c1: torch.Tensor, s1: torch.Tensor, n_modes: int):
-    """(..., Km) mode sums c_m = sum_p cos(k_m x_p), s_m = sum_p sin(k_m x_p)
-    by the three-term recurrence from the base harmonic."""
-    twoc = c1 + c1
-    cs, ss = [c1.sum(-1)], [s1.sum(-1)]
-    c_pp, s_pp = torch.ones_like(c1), torch.zeros_like(s1)
-    c_prev, s_prev = c1, s1
-    for _ in range(n_modes - 1):
-        c_pp, c_prev = c_prev, twoc * c_prev - c_pp
-        s_pp, s_prev = s_prev, twoc * s_prev - s_pp
-        cs.append(c_prev.sum(-1))
-        ss.append(s_prev.sum(-1))
-    return torch.stack(cs, dim=-1), torch.stack(ss, dim=-1)
-
-
-def _mode_eval(c1: torch.Tensor, s1: torch.Tensor, pc: torch.Tensor, ps: torch.Tensor):
-    """sum_m pc[m] cos(k_m x_p) + ps[m] sin(k_m x_p) per particle."""
-    twoc = c1 + c1
-    acc = pc[..., 0:1] * c1 + ps[..., 0:1] * s1
-    c_pp, s_pp = torch.ones_like(c1), torch.zeros_like(s1)
-    c_prev, s_prev = c1, s1
-    for m in range(1, pc.shape[-1]):
-        c_pp, c_prev = c_prev, twoc * c_prev - c_pp
-        s_pp, s_prev = s_prev, twoc * s_prev - s_pp
-        acc = acc + pc[..., m : m + 1] * c_prev + ps[..., m : m + 1] * s_prev
-    return acc
-
-
 def _pad_modes(u_half: torch.Tensor, km: int) -> torch.Tensor:
     """(..., ka) -> (..., km) zero padding of the actuator's coefficients."""
     return F.pad(u_half, (0, km - u_half.shape[-1]))
@@ -510,20 +486,20 @@ def _horizon_cost_spectral(
     # initial (un-merged) half-kick at the current positions
     t0 = two_pi_over_l * x
     c1_0, s1_0 = torch.cos(t0), torch.sin(t0)
-    c0, s0 = _mode_sums(c1_0, s1_0, km)
+    c0, s0 = mode_sums(c1_0, s1_0, km)
     pc0 = g * s0 + u_c[..., 0, :]
     ps0 = -(g * c0) + u_s[..., 0, :]
-    vh = state.v + 0.5 * dt * (-_mode_eval(c1_0, s1_0, pc0, ps0))
+    vh = state.v + 0.5 * dt * (-mode_eval(c1_0, s1_0, pc0, ps0))
 
     costs, pes = [], []
     for t in range(coeff_seqs.shape[-2]):
         x = torch.remainder(x + dt * vh, cfg.length)
         ang = two_pi_over_l * x
         c1, s1 = torch.cos(ang), torch.sin(ang)
-        c, s = _mode_sums(c1, s1, km)
+        c, s = mode_sums(c1, s1, km)
         pc = 2.0 * (g * s) + pair_c[..., t, :]
         ps = 2.0 * (-g * c) + pair_s[..., t, :]
-        vh = vh + 0.5 * dt * (-_mode_eval(c1, s1, pc, ps))
+        vh = vh + 0.5 * dt * (-mode_eval(c1, s1, pc, ps))
         if twin_target is not None:
             c, s = c - twin_target[0][t], s - twin_target[1][t]
         pe = pe_scale * torch.sum((c * c + s * s) * inv_k2, dim=-1)
@@ -534,33 +510,15 @@ def _horizon_cost_spectral(
 
 
 def _twin_mode_traj(state: PlasmaState, cfg: SimConfig, mpc: MPCConfig, km: int):
-    """Zero-drive twin of the spectral plan rollout: the (H, Km) mode-sum
-    trajectory of the plan state under no external drive, with the
-    discretization of the candidate rollouts (merged-half-kick staggered KDK,
-    the same initial un-merged half kick, post-drift sampling) and the exact
-    trig drift, as in the JAX package. A zero-drive candidate on the op-by-op
-    path reproduces it; on the kernel's rot drift a small residual survives
-    the difference."""
-    n_p = cfg.n_particles
-    dt = cfg.clamped_dt()
-    two_pi_over_l = 2.0 * math.pi / cfg.length
-    k = two_pi_over_l * torch.arange(1, km + 1, dtype=state.x.dtype, device=state.x.device)
-    g = 2.0 * cfg.n0 / (n_p * k)
-
-    t0 = two_pi_over_l * state.x
-    c1_0, s1_0 = torch.cos(t0), torch.sin(t0)
-    c0, s0 = _mode_sums(c1_0, s1_0, km)
-    vh = state.v + 0.5 * dt * (-_mode_eval(c1_0, s1_0, g * s0, -(g * c0)))
-    x, cs, ss = state.x, [], []
-    for _ in range(mpc.horizon):
-        x = torch.remainder(x + dt * vh, cfg.length)
-        ang = two_pi_over_l * x
-        c1, s1 = torch.cos(ang), torch.sin(ang)
-        c, s = _mode_sums(c1, s1, km)
-        vh = vh + 0.5 * dt * (-_mode_eval(c1, s1, 2.0 * (g * s), 2.0 * (-(g * c))))
-        cs.append(c)
-        ss.append(s)
-    return torch.stack(cs), torch.stack(ss)  # each (H, Km)
+    """Zero-drive twin of the spectral plan rollout, op by op
+    (:func:`..ops.kernels.twin_trajectory.twin_rollout_plain`): the (H, Km)
+    mode-sum trajectory of the plan state under no external drive, with the
+    discretization of the candidate rollouts and the exact trig drift, as in
+    the JAX package. A zero-drive candidate on the op-by-op path reproduces
+    it; on the kernel's rot drift a small residual survives the difference."""
+    return twin_rollout_plain(state.x, state.v, n_modes=km, horizon=mpc.horizon,
+                              length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0,
+                              n_particles=cfg.n_particles)
 
 
 def twin_targets(full_x: torch.Tensor, plan_state: PlasmaState, plan_cfg: SimConfig,
@@ -575,19 +533,17 @@ def twin_targets(full_x: torch.Tensor, plan_state: PlasmaState, plan_cfg: SimCon
     fraction r = n/N and subsample noise power n (1 - r),
     ``lambda_m = r^2 sig2_m / (r^2 sig2_m + n (1 - r))``. None at full
     fidelity or when ``mpc.plan_correction != "twin"``; the JAX package's
-    docstring gives the derivation."""
+    docstring gives the derivation. On CUDA tensors one launch of the twin
+    trajectory kernel computes both (:mod:`..ops.kernels.twin_trajectory`);
+    on CPU tensors its plain version runs, op by op."""
     if mpc.plan_correction != "twin" or _plan_frac(full_cfg, mpc) >= 1.0:
         return None
     km = max(int(mpc.plan_modes), ctrl.max_mode)
-    t = (2.0 * math.pi / full_cfg.length) * full_x.reshape(-1).to(plan_state.x.dtype)
-    cf, sf = _mode_sums(torch.cos(t), torch.sin(t), km)
-    n_full, n_plan = float(full_cfg.n_particles), float(plan_cfg.n_particles)
-    r = n_plan / n_full
-    sig2 = torch.clamp(cf * cf + sf * sf - n_full, min=0.0)
-    lam = (r * r * sig2) / (r * r * sig2 + n_plan * (1.0 - r))
-    rho = 1.0 - lam  # (Km,) noise fraction per mode
-    c0, s0 = _twin_mode_traj(plan_state, plan_cfg, mpc, km)
-    return rho * c0, rho * s0
+    return twin_trajectory(
+        full_x.reshape(-1).to(plan_state.x.dtype), plan_state.x, plan_state.v, n_modes=km,
+        horizon=mpc.horizon, length=plan_cfg.length, dt=plan_cfg.clamped_dt(), n0=plan_cfg.n0,
+        n_full=full_cfg.n_particles, n_plan=plan_cfg.n_particles,
+    )
 
 
 def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator, twin_target=None):

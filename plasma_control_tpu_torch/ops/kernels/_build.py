@@ -31,8 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SpectralParams", "GridParams", "MAX_MODES", "BLOCK_MODES", "MAX_CLUSTER",
-           "SHARED_BYTES", "build", "library", "call", "check"]
+__all__ = ["SpectralParams", "TwinParams", "GridParams", "MAX_MODES", "BLOCK_MODES",
+           "MAX_CLUSTER", "SHARED_BYTES", "build", "library", "call", "check"]
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 SOURCE_DIR = _PACKAGE / "csrc"
@@ -75,6 +75,20 @@ class SpectralParams(ctypes.Structure):
     ]
 
 
+class TwinParams(ctypes.Structure):
+    """By-value parameter block of ``pct_twin_trajectory`` (same layout as
+    ``TwinParams`` in csrc/twin_trajectory.cu)."""
+
+    _fields_ = [
+        ("s", SpectralParams),
+        ("n_full", ctypes.c_int),
+        ("xf_st", ctypes.c_int),
+        ("n_full_f", ctypes.c_float),
+        ("r2", ctypes.c_float),
+        ("noise", ctypes.c_float),
+    ]
+
+
 class GridParams(ctypes.Structure):
     """By-value parameter block of ``pct_fused_leapfrog_step`` and
     ``pct_grid_horizon`` (same layout as ``GridParams`` in csrc/fused_step.cu)."""
@@ -104,6 +118,10 @@ _SIGNATURES = {
     "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _P],
     # params, rot, global, corrected, out max_clusters
     "pct_spectral_max_clusters": [SpectralParams, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    # xf, x0, v0, tc, ts, scratch, params, stream
+    "pct_twin_trajectory": [_P, _P, _P, _P, _P, _P, TwinParams, _P],
+    # params, global, out max_clusters
+    "pct_twin_max_clusters": [TwinParams, _I, ctypes.POINTER(ctypes.c_int)],
     # x, v, e_ext, eop_t, xo, vo, eo, mesh, b, grid, params, exact, eop_smem, state_smem,
     # stream
     "pct_fused_leapfrog_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, GridParams, _I, _I, _I,

@@ -73,15 +73,21 @@ def test_gather_matches_plain(dev, gen, kind, b):
 
 def _device_ops(fn, tmp_path):
     """Names of the device kernels, copies and sets that one call of ``fn``
-    puts on the card, from a profiler trace."""
-    from torch.profiler import ProfilerActivity, profile
+    puts on the card, from a profiler trace. The recorded call follows a
+    warm-up call whose events are discarded: late in a long process the
+    profiler's first window can miss every device event (as chip_smoke.py's
+    trace_window found)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     path = tmp_path / "trace.json"
-    prof.export_chrome_trace(str(path))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+        for _ in range(2):  # warm-up, then the recorded call
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     trace = json.loads(path.read_text())
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
     return [e["name"] for e in events
@@ -480,7 +486,7 @@ def test_spectral_horizon_is_deterministic(dev, gen, n, k, km):
 def test_spectral_horizon_is_one_device_op(dev, gen, tmp_path):
     """The twin slice's call as candidate_costs makes it: a stride-10 plan
     subsample and (K, H, Ka) views of one candidate tensor padded to Km in
-    the kernel. One launch counted, one kernel on the card and no other
+    the kernel. One launch counted per call, one kernel on the card and no other
     device op; the energies equal those of contiguous, zero-padded inputs."""
     x = torch.rand(100_000, generator=gen, device=dev) * L
     v = 1.5 * torch.randn(100_000, generator=gen, device=dev)
@@ -495,7 +501,7 @@ def test_spectral_horizon_is_one_device_op(dev, gen, tmp_path):
     got = call()
     before = sh.spectral_horizon.launches
     names = _device_ops(call, tmp_path)
-    assert sh.spectral_horizon.launches == before + 1
+    assert sh.spectral_horizon.launches == before + 2  # the warm-up call and the recorded one
     assert len(names) == 1 and "spectral_horizon_kernel" in names[0], names
     pad = torch.nn.functional.pad
     ref = sh.spectral_horizon(x0.contiguous(), v0.contiguous(), pad(cand[..., :8], (0, 8)),
@@ -823,3 +829,126 @@ def test_rollout_batch_on_card_is_one_launch_per_batched_deposit(dev, gen, monke
         one = rollout(PlasmaState(st.x[b], st.v[b]), grid, cfg,
                       None if trajs is None else trajs[b], n_steps=5)
         torch.testing.assert_close(out.field_energy[b], one.field_energy, rtol=1e-5, atol=1e-7)
+
+
+# kernel 7, the twin-corrected solve's targets: (N, stride, Km, H) of the full
+# state and the plan subsample x[::stride]. The twin slice's stride-10 view of
+# 100000 particles at Km=16, H=10; a small case on a cluster of 4; Km=32 over
+# 20000 plan particles (two blocks of modes); 250000 plan particles, beyond
+# what a cluster's shared memory holds (the global scratch)
+TWIN_SHAPES = [(5000, 10, 4, 4), (100_000, 10, 16, 10), (200_000, 10, 32, 10),
+               (500_000, 2, 16, 4)]
+
+
+def _twin_inputs(gen, dev, n, stride):
+    """A two-stream state with a mode-1 density modulation (so that mode 1's
+    shrinkage is far from 0 and 1) and the plan subsample as strided views."""
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    k1 = 2 * np.pi / L
+    x = torch.remainder(x0 + (0.5 / k1) * torch.sin(k1 * x0), L)
+    v = 0.5 * torch.randn(n, generator=gen, device=dev)
+    v += torch.where(torch.arange(n, device=dev) % 2 == 0, 3.0, -3.0)
+    return x, x[::stride], v[::stride]
+
+
+def _twin_kw(n, n_plan, km, h):
+    return dict(n_modes=km, horizon=h, length=L, dt=0.0447, n0=1.0, n_full=n, n_plan=n_plan)
+
+
+def _max_err(got, ref):
+    return max(float((a.double() - b).abs().max()) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("n,stride,km,h", TWIN_SHAPES)
+def test_twin_trajectory_matches_plain(dev, gen, n, stride, km, h):
+    """The kernel against the plain version in float64: its max error at
+    most twice the float32 plain version's (the sums are added in another
+    order than torch.sum's); one launch counted; the global scratch exactly
+    where a cluster's shared memory cannot hold the plan state."""
+    from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
+
+    x, xp, vp = _twin_inputs(gen, dev, n, stride)
+    kw = _twin_kw(n, xp.shape[0], km, h)
+    assert (tt.launch_geometry(n, xp.shape[0]).shared_bytes == 0) == (xp.shape[0] > 230_016)
+    before = tt.twin_trajectory.launches
+    got = tt.twin_trajectory(x, xp, vp, **kw)
+    assert tt.twin_trajectory.launches == before + 1
+    assert all(t.shape == (h, km) and t.dtype == torch.float32 for t in got)
+    ref = tt.twin_trajectory_plain(x.double(), xp.double(), vp.double(), **kw)
+    plain = tt.twin_trajectory_plain(x, xp, vp, **kw)
+    err, plain_err = _max_err(got, ref), _max_err(plain, ref)
+    assert err <= 2.0 * plain_err, (err, plain_err)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_twin_trajectory_at_every_cluster_size(dev, gen, cluster):
+    """The twin slice's shapes on every cluster size: the same bar against
+    the float64 plain version."""
+    from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
+
+    x, xp, vp = _twin_inputs(gen, dev, 100_000, 10)
+    kw = _twin_kw(100_000, 10_000, 16, 10)
+    got = tt._twin_trajectory_cuda(x, xp, vp, cluster=cluster, **kw)
+    ref = tt.twin_trajectory_plain(x.double(), xp.double(), vp.double(), **kw)
+    plain = tt.twin_trajectory_plain(x, xp, vp, **kw)
+    assert _max_err(got, ref) <= 2.0 * _max_err(plain, ref)
+
+
+def test_twin_trajectory_is_deterministic_and_one_device_op(dev, gen, tmp_path):
+    """No atomics: two launches bitwise equal; one kernel on the card per
+    call and no other device op."""
+    from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
+
+    x, xp, vp = _twin_inputs(gen, dev, 100_000, 10)
+    kw = _twin_kw(100_000, 10_000, 16, 10)
+    first = tt.twin_trajectory(x, xp, vp, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, tt.twin_trajectory(x, xp, vp, **kw)))
+    names = _device_ops(lambda: tt.twin_trajectory(x, xp, vp, **kw), tmp_path)
+    assert len(names) == 1 and "twin_trajectory_kernel" in names[0], names
+
+
+def test_twin_trajectory_refuses_what_it_does_not_take(dev):
+    from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
+
+    x = torch.rand(1000, device=dev) * L
+    kw = _twin_kw(1000, 100, 16, 4)
+    with pytest.raises(TypeError):  # float64
+        tt.twin_trajectory(x.double(), x[::10].double(), x[::10].double(), **kw)
+    with pytest.raises(ValueError):  # n_plan does not match the subsample
+        tt.twin_trajectory(x, x[::10], x[::10], **dict(kw, n_plan=99))
+    with pytest.raises(ValueError):  # x0 and v0 at different strides
+        tt.twin_trajectory(x, x[::10], x[:100], **kw)
+    with pytest.raises(ValueError):  # Km above the kernel's 64 modes
+        tt.twin_trajectory(x, x[::10], x[::10], **dict(kw, n_modes=65))
+
+
+def test_twin_targets_on_card_launch_the_kernel(dev, gen, monkeypatch):
+    """mpc.twin_targets on CUDA tensors: one launch of kernel 7, never the
+    op-by-op version; the targets match the CPU's to 1e-4 of the largest,
+    the bar of the CPU's targets against JAX's."""
+    from plasma_control_tpu_torch.config import ControlConfig
+    from plasma_control_tpu_torch.control.mpc import _plan_model, twin_targets
+    from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
+
+    cfg = SimConfig(simcase="two-stream", n_particles=100_000, n_mesh=256, dt=0.1, length=L)
+    mpc = MPCConfig(horizon=10, plan_particles=10_000, plan_mesh=64, plan_correction="twin")
+    ctrl = ControlConfig(max_mode=8)
+    x, _, _ = _twin_inputs(gen, dev, 100_000, 1)
+    v = 0.5 * torch.randn(100_000, generator=gen, device=dev) + 3.0
+    st = PlasmaState(x, v)
+    targets = {}
+    for side, s, g in (("cpu", PlasmaState(x.cpu(), v.cpu()), make_grid(256, L, device="cpu")),
+                       ("cuda", st, make_grid(256, L, device=dev))):
+        if side == "cuda":
+            def refuse(*args, **kwargs):
+                raise AssertionError("a CUDA tensor reached the op-by-op twin")
+
+            monkeypatch.setattr(tt, "twin_trajectory_plain", refuse)
+            monkeypatch.setattr(tt, "twin_rollout_plain", refuse)
+        pst, _, pcfg = _plan_model(s, g, cfg, mpc)
+        before = tt.twin_trajectory.launches
+        targets[side] = twin_targets(s.x, pst, pcfg, cfg, ctrl, mpc)
+        assert tt.twin_trajectory.launches == before + (side == "cuda")
+    ref = [t.double() for t in targets["cpu"]]
+    assert _max_err([t.cpu() for t in targets["cuda"]], ref) <= (
+        1e-4 * float(max(t.abs().max() for t in ref)))

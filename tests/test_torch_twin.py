@@ -23,6 +23,7 @@ from plasma_control_tpu_torch.control import mpc
 from plasma_control_tpu_torch.control.actuator import make_actuator
 from plasma_control_tpu_torch.interop import state_from_numpy
 from plasma_control_tpu_torch.ops.grid import make_grid
+from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
 from plasma_control_tpu_torch.ops.kernels.spectral_horizon import spectral_horizon
 
 torch.set_num_threads(1)
@@ -210,3 +211,51 @@ def test_twin_closed_loop_matches_jax(path):
     np.testing.assert_allclose(tout.field_energy.numpy(), np.asarray(jout.field_energy),
                                rtol=2e-3)
     np.testing.assert_allclose(tout.plan_cost.numpy(), np.asarray(jout.plan_cost), rtol=2e-3)
+
+
+@pytest.mark.parametrize("amplitude", [0.0, 0.5], ids=["quiet", "coherent"])
+def test_twin_targets_on_cpu_are_the_plain_version(amplitude):
+    """On CPU tensors mpc.twin_targets is the twin kernel's plain version,
+    bitwise, and the kernel is never launched."""
+    _, t = _both(TWIN, amplitude=amplitude)
+    tst, _, tcfg = mpc._plan_model(t["state"], t["grid"], t["cfg"], t["mpc"])
+    before = tt.twin_trajectory.launches
+    got = mpc.twin_targets(t["state"].x, tst, tcfg, t["cfg"], t["ctrl"], t["mpc"])
+    assert tt.twin_trajectory.launches == before == 0
+    ref = tt.twin_trajectory_plain(
+        t["state"].x, tst.x, tst.v, n_modes=TWIN["plan_modes"], horizon=TWIN["horizon"],
+        length=L, dt=tcfg.clamped_dt(), n0=tcfg.n0, n_full=t["cfg"].n_particles,
+        n_plan=tcfg.n_particles)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    if amplitude:  # the coherent plasma's mode 1 is shrunk
+        c0, _ = mpc._twin_mode_traj(tst, tcfg, t["mpc"], TWIN["plan_modes"])
+        assert not torch.equal(got[0], c0)
+
+
+def test_twin_trajectory_refuses_other_devices():
+    x = torch.zeros(8, device="meta")
+    with pytest.raises(RuntimeError):
+        tt.twin_trajectory(x, x[::2], x[::2], n_modes=4, horizon=2, length=L, dt=0.1, n0=1.0,
+                           n_full=8, n_plan=4)
+
+
+@pytest.mark.parametrize("n_full,n_plan,cluster,slice_", [
+    (100_000, 10_000, 16, 625),  # the twin slice
+    (5000, 500, 4, 125),
+    (2000, 500, 1, 500),
+    (200_000, 20_000, 16, 1250),
+])
+def test_twin_trajectory_launch_geometry(n_full, n_plan, cluster, slice_):
+    """The smallest power-of-two cluster that leaves at most 2048 particles
+    of the larger state per CTA; the plan state's 16 B per particle in shared
+    memory."""
+    geo = tt.launch_geometry(n_full, n_plan)
+    assert (geo.cluster, geo.slice, geo.shared_bytes) == (cluster, slice_, 16 * slice_)
+
+
+def test_twin_trajectory_global_scratch_beyond_shared_memory():
+    """At C=16 a CTA holds 230016 plan particles beside the kernel's static
+    shared memory; one more moves the state to the global scratch."""
+    assert tt.launch_geometry(2_300_160, 230_016).shared_bytes == 16 * 14_376
+    assert tt.launch_geometry(2_300_170, 230_017).shared_bytes == 0
+    assert tt.launch_geometry(100_000, 10_000, cluster=2) == (2, 5000, 80_000)
