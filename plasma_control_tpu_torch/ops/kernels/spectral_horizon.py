@@ -27,7 +27,10 @@ allocates (:func:`scratch_shape`), so every N runs; there the kernel makes
 one pass over the state per step. Km up to 16 runs a compile-time 8 or 16
 modes; Km from 17 to 64 (``_build.MAX_MODES``) runs the kernel's blocked
 variant, 16 modes at a time. While :mod:`...utils.debug`'s NaN checks are
-on, the wrapper checks each launch's inputs and output.
+on, the wrapper checks each launch's inputs and output. Under a
+:mod:`...utils.trace` recording it counts each launch of the blocked variant
+(``plan.blocks_kernel``) and adds the bytes of each launch's global scratch
+(``plan.kernel_scratch_bytes``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils import trace
 from ...utils.debug import check_kernel
 from . import _build
 
@@ -301,6 +305,10 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     spectral_horizon.launches += 1
     if corrected:
         spectral_horizon.twin_launches += 1
+    if km > _build.BLOCK_MODES:
+        trace.count("plan.blocks_kernel")
+    if shape is not None:
+        trace.count("plan.kernel_scratch_bytes", 4 * shape[0] * shape[1])
     check_kernel("spectral_horizon", tensors, (pe,))
     return pe
 

@@ -457,6 +457,31 @@ def test_spectral_horizon_global_scratch_is_the_shared_path(dev, gen, cluster, k
     assert torch.equal(scratch, shared)
 
 
+def test_million_solve_in_one_launch_is_its_chunks(dev, gen):
+    """The million-particle controller's solve as its benchmark cell runs it
+    (N=1M, K=384, H=10, Km=32 over Ka=16, rot): one launch over a global
+    scratch of 6144 rows (384 clusters of 16 CTAs) of 3 x 62500 floats gives
+    bitwise the energies of the source's 24 chunks of 16 candidates, each
+    candidate on its own cluster."""
+    n, k, h, km, ka, dt = 1_000_000, 384, 10, 32, 16, 2.0 / (1_000_000 / L) ** 0.5
+    geo = sh.launch_geometry(n, True, km)
+    assert geo == sh.Geometry(16, 62_500, 0)
+    assert sh.scratch_shape(k, geo, True) == (6144, 187_500)
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    v0 = torch.randn(n, generator=gen, device=dev) + 3.0 * torch.sign(torch.randn(
+        n, generator=gen, device=dev))
+    cand = torch.clamp(0.3 * torch.randn((k, h, 2 * ka), generator=gen, device=dev), -2.0, 2.0)
+    kw = dict(length=L, dt=dt, n0=1.0, n_particles=n, rot=True, n_modes=km)
+    before = sh.spectral_horizon.launches
+    whole = sh.spectral_horizon(x0, v0, cand[..., :ka], cand[..., ka:], **kw)
+    assert sh.spectral_horizon.launches == before + 1
+    chunks = torch.cat([sh.spectral_horizon(x0, v0, c[..., :ka], c[..., ka:], **kw)
+                        for c in cand.split(16)])
+    assert sh.spectral_horizon.launches == before + 25
+    assert torch.isfinite(whole).all()
+    assert torch.equal(whole, chunks)
+
+
 def test_spectral_horizon_beyond_16_modes_is_deterministic(dev, gen):
     """Each block's sums through the cluster reduction in rank order: two
     launches at Km=32 give bitwise equal energies, in shared memory and in

@@ -195,3 +195,63 @@ def test_merge_spans_adds_nothing_without_a_recording():
               "baseTimeNanoseconds": 0}
     assert merge_spans(chrome)["traceEvents"] == [{"ph": "X", "name": "aten::mm", "ts": 1.0,
                                                    "dur": 1.0}]
+
+
+def _launch(km, geometry, k=4, n=1000):
+    """One call of kernel 1's launch wrapper at ``km`` modes and
+    ``geometry`` (CPU tensors suffice: the caller stubs the library out)."""
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+    x0, v0 = torch.rand(n) * 50.0, torch.randn(n)
+    u = torch.zeros((k, 3, km))
+    return sh._spectral_horizon_cuda(x0, v0, u, u, length=50.0, dt=0.1, n0=1.0, n_particles=n,
+                                     rot=True, twin_c=None, twin_s=None, n_modes=None,
+                                     geometry=geometry)
+
+
+def test_kernel_counters_without_a_launch(monkeypatch):
+    """The wrapper's counters with the library stubbed out: one
+    plan.blocks_kernel per launch beyond 16 modes, the global scratch's bytes
+    per launch that has one (K x C rows of 3 S floats for rot), nothing
+    where the state is in shared memory; off, nothing is recorded."""
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+    monkeypatch.setattr(sh, "_params", lambda *a: None)
+    monkeypatch.setattr(sh._build, "call", lambda *a: None)
+    scratch, shared = sh.Geometry(4, 250, 0), sh.Geometry(4, 250, 3000)
+    _launch(32, scratch)
+    assert trace.counters() == {}
+    with trace.recording(8):
+        _launch(32, scratch)
+        _launch(32, shared)
+        _launch(16, scratch)
+        _launch(8, shared)
+        got = trace.counters()
+    assert got == {"plan.blocks_kernel": 2, "plan.kernel_scratch_bytes": 2 * 4 * (4 * 4) * 750,
+                   "dropped": 0}
+    assert sh.scratch_shape(4, scratch, True) == (16, 750)
+
+
+@pytest.mark.cuda
+def test_kernel_counters_on_the_card():
+    """Real launches under a recording: the million-particle solve's chunk
+    (N=1M, K=16, Km=32: blocked, global scratch of 256 rows of 3 x 62500
+    floats), the blocked variant in shared memory (N=20000), and kernel 1 at
+    16 modes in shared memory (N=100000), which counts neither."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with trace.recording(8):
+        for n, k, km in ((1_000_000, 16, 32), (20_000, 8, 32), (100_000, 8, 16)):
+            x0 = torch.rand(n, generator=gen, device="cuda") * 50.0
+            v0 = torch.randn(n, generator=gen, device="cuda")
+            u = 0.3 * torch.randn((k, 10, 16), generator=gen, device="cuda")
+            sh.spectral_horizon(x0, v0, u, u, length=50.0, dt=0.01414, n0=1.0, n_particles=n,
+                                rot=True, n_modes=km)
+        got = trace.counters()
+    rows, width = sh.scratch_shape(16, sh.launch_geometry(1_000_000, True, 32), True)
+    assert (rows, width) == (256, 3 * 62_500)
+    assert got == {"plan.blocks_kernel": 2, "plan.kernel_scratch_bytes": 4 * rows * width,
+                   "dropped": 0}
