@@ -2,10 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --guard [PARENT_DIR]   # the [guard] section alone
 
 Run from the root of a checkout on a machine with a Hopper GPU (sm_90a), the
 CUDA toolkit (nvcc) and PyTorch built for CUDA. It imports only
-``plasma_control_tpu_torch``, never jax, and works through these phases;
+``plasma_control_tpu_torch`` (and, for ``[guard]``'s steps/s, the benchmark
+harness in ``benchmark/``, which imports nothing else), never jax, and works
+through these phases;
 any failure exits non-zero:
 
 1. find the card (no CPU fallback) and print its name and power limit as
@@ -34,7 +37,16 @@ any failure exits non-zero:
    against its plain version in float32 and float64, one device op per
    call and bitwise equal over two launches; kernel 1's global-scratch
    variant, both energies and drifts,
-   at N=320000, beyond what a cluster of 16 CTAs holds; two launches of
+   at N=320000, beyond what a cluster of 16 CTAs holds; ``[guard]``: kernel
+   8, the fidelity guard's statistic, at the twin slice's full state
+   (N=100000, Km=16) and the grid slice's (N=5000, Km=16) against its plain
+   version in float32 and float64, bitwise equal over two launches, one
+   device op per call, its CUDA-event and device time beside its bound and
+   the plain version's time and device ops; then the twin and grid graph
+   cells' control steps/s (``benchmark/``'s program, 2000 replayed steps
+   after the capture, each run in a fresh process), and with ``--guard
+   PARENT_DIR`` the same for the checkout at PARENT_DIR in turns (parent,
+   this, this, parent); two launches of
    kernel 1 bitwise equal; the gather beside ``grid_sample``, the one
    PyTorch call that computes it; kernel 1 and its corrected variant beyond
    16 modes (Km=32 over 16 drive modes, both drifts) in shared memory
@@ -246,6 +258,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SIM = dict(simcase="bump-on-tail", n_particles=5000, n_mesh=250, dt=0.1, t_max=50.0,
            length=50.0, deposit_method="pallas")
@@ -331,6 +344,8 @@ SURFACE_PRESETS = ("wo-oc", "feedback", "ddpg", "ppo", "sac", "bench-small", "be
 SURFACE_PIC_STEPS = 3
 RL_CPU_STEPS = 20
 
+ROOT = Path(__file__).resolve().parent
+
 # published peaks of one H100 SXM at 700 W: fp32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -414,6 +429,19 @@ def twin_ops(n_full: int, n: int, h: int, km: int) -> float:
 def twin_bytes(n_full: int, n: int, h: int, km: int) -> float:
     """full_x and the plan state's x0, v0 in, the (H, Km) targets out."""
     return 4 * (n_full + 2 * n + 2 * h * km)
+
+
+def guard_ops(n: int, km: int) -> float:
+    """Operations of the fidelity guard's statistic (kernel 8,
+    csrc/fidelity_ratio.cu): per particle the angle and sincosf, and per mode
+    the recurrence's two FMAs and two adds of the sums, N (6 Km + 1) as the
+    source's note counts them; the (Km,) tail is left out."""
+    return n * (6 * km + 1)
+
+
+def guard_bytes(n: int) -> float:
+    """The full state's positions in; one float out (left out)."""
+    return 4 * n
 
 
 def solve_ops(m: int) -> float:
@@ -908,6 +936,7 @@ def _kernel_fns() -> dict:
     counts every launch in ``launches`` and those of its twin-corrected
     variant also in ``twin_launches``."""
     from plasma_control_tpu_torch.ops.kernels import cic
+    from plasma_control_tpu_torch.ops.kernels import fidelity_ratio as fr
     from plasma_control_tpu_torch.ops.kernels import fused_step as fs
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
     from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
@@ -919,7 +948,8 @@ def _kernel_fns() -> dict:
             "fused_leapfrog_step": (fs.fused_leapfrog_step, "launches"),
             "fused_kdk_horizon": (fs.fused_kdk_horizon, "launches"),
             "fused_packed_horizon": (fs.fused_packed_horizon, "launches"),
-            "twin_trajectory": (tt.twin_trajectory, "launches")}
+            "twin_trajectory": (tt.twin_trajectory, "launches"),
+            "fidelity_ratio": (fr.fidelity_ratio, "launches")}
 
 
 def _reset(fns: dict) -> None:
@@ -1228,8 +1258,10 @@ def run_grid_slice(torch, rows: dict):
     wall = time.perf_counter() - t0
     launches = _counts(fns)
     rows["fused_packed_horizon"]["launches"] = launches["fused_packed_horizon"]
+    rows["fidelity_ratio_grid"]["launches"] = launches["fidelity_ratio"]
     log(f"[grid] {steps} control steps; kernel launches in the controlled run: {launches}")
-    require(launches["fused_packed_horizon"] == steps, "one fused_packed_horizon launch per solve")
+    require(launches["fused_packed_horizon"] == launches["fidelity_ratio"] == steps,
+            "one fused_packed_horizon launch and one fidelity_ratio launch per solve")
     require(launches["spectral_horizon"] == launches["fused_leapfrog_step"]
             == launches["fused_kdk_horizon"] == 0, "no other planner kernel")
     require(launches["gather_cic"] == 3 * steps, "three gathers per Yoshida-4 step")
@@ -1770,6 +1802,115 @@ def check_twin_kernel(torch, rows: dict) -> None:
         f"lambda^2 (c0^2 + s0^2) / k^2 to max rel {rel:.3g} (rtol 1e-4)")
 
 
+# kernel 8 at the two guarded slices' full states: (row, N, Km, frac, cell of
+# benchmark/ whose steps/s [guard] reports)
+GUARD_SLICES = (("fidelity_ratio", 100_000, 16, 0.1, "two_stream_n100k.mpc_twin_graph"),
+                ("fidelity_ratio_grid", 5000, 16, 0.25, "bump_on_tail_n5k.mpc_grid_graph"))
+GUARD_STEPS = 2000  # replayed steps per timed run, four 500-step episodes
+GUARD_SEED = 2_718_281_828
+
+
+def check_guard_kernel(torch, rows: dict) -> None:
+    """``[guard]``: kernel 8 at the twin and grid slices' full states, from a
+    coherent two-stream state (the guard's ratio well above 0): against the
+    plain version in float32 and, as its sums are added in another order, no
+    further from the float64 plain version than twice the float32 one (one
+    float32 rounding of the ratio the least bar); two launches bitwise equal;
+    one device op per call; CUDA-event and device time beside the bound, and
+    the plain version's time and device ops per call."""
+    from plasma_control_tpu_torch.ops.kernels import fidelity_ratio as fr
+
+    dev = torch.device("cuda")
+    for row, n, km, frac, _ in GUARD_SLICES:
+        x = coherent_state(torch, n, 50.0, seed=13, amplitude=0.2).x.to(dev)
+        injected = sum((1.0 - frac) / (2.0 * math.pi * m / 50.0) ** 2 for m in range(1, km + 1))
+        kw = dict(n_modes=km, length=50.0, n0=1.0, n_particles=n, frac=frac, injected=injected)
+        call = lambda: fr.fidelity_ratio(x, **kw)  # noqa: E731
+        plain = lambda: fr.fidelity_ratio_plain(x, **kw)  # noqa: E731
+        got, ref = float(call()), float(plain())
+        ref64 = float(fr.fidelity_ratio_plain(x.double(), **kw))
+        err64, plain64 = abs(got - ref64), abs(ref - ref64)
+        least = float(torch.finfo(torch.float32).eps) * abs(ref64)
+        require(err64 <= 2.0 * max(plain64, least),
+                f"{row}: {err64} from float64, plain float32 {plain64}")
+        require(torch.equal(call(), call()), f"{row}: two launches differ")
+        dev_ms, ops = device_ms(torch, call, "fidelity_ratio_kernel", reps=20)
+        require(ops == 1, f"{row}: {ops:.3g} device ops per call")
+        plain_dev_ms, plain_ops = device_ms(torch, plain, None, reps=20)
+        rows[row].update(max_abs_err=abs(got - ref), device_ms=dev_ms, ms=time_ms(torch, call),
+                         plain_ms=time_ms(torch, plain), library_ms=None,
+                         **bound(guard_ops(n, km), guard_bytes(n)))
+        b = rows[row]
+        log(f"[guard] {row} (N={n}, Km={km}, frac {frac}, {fr.launch_ctas(n)} CTAs): ratio "
+            f"{got:.7g}, plain {ref:.7g}, float64 {ref64:.7g}; from float64 {err64:.3g} against "
+            f"the float32 plain version's {plain64:.3g} (bar: twice, at least {least:.3g}); "
+            f"kernel {b['ms']:.4f} ms, device {dev_ms:.5f} ms per launch, bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']}) = {100 * b['bound_ms'] / dev_ms:.2f} %; "
+            f"plain {b['plain_ms']:.4f} ms, device {plain_dev_ms:.5f} ms in {plain_ops:.0f} "
+            f"device ops per call; one device op per call, two launches bitwise equal")
+
+
+def guard_cell_steps(cell_name: str, steps: int, seed: int) -> dict:
+    """One side of ``[guard]``'s turns, in its own process run from the root
+    of a checkout: that checkout's program for the benchmark cell (the
+    captured step), a warm-up episode of 6 steps (the capture), then
+    ``steps`` steps in 500-step episodes from the cell's start states,
+    timed on the host clock up to a synchronise."""
+    import os
+
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import plasma_control_tpu_torch
+    from benchmark import harness, sampler
+    from benchmark.cell import load_cell
+
+    cell = load_cell(cell_name, Path(os.getcwd()))
+    prog = harness.Program(cell, "cuda")
+    p = prog.p
+    states = sampler.start_states(cell.sim, seed, cell.traffic["start_states"], "cuda")
+    gen = prog.generator
+    episode = cell.traffic["episode_steps"]
+
+    def run(state, count):
+        return p["aot"].aot_mpc_rollout(prog.step, p["PlasmaState"](*state), gen, count,
+                                        prog.h, prog.d)
+
+    gen.manual_seed(seed)
+    run(states[-1], cell.traffic["warmup_steps"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for e in range(steps // episode):
+        run(states[e % len(states)], episode)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"cell": cell_name, "steps_per_s": steps / wall, "steps": steps,
+            "package": str(Path(plasma_control_tpu_torch.__file__).parent)}
+
+
+def run_guard_turns(torch, parent: str | None) -> None:
+    """``[guard]``: the twin and grid graph cells' control steps/s, each run
+    in a fresh process (``--guard-steps``); with ``parent``, the checkout
+    there and this one in turns (parent, this, this, parent)."""
+    sides = [("parent", Path(parent).resolve()), ("change", ROOT), ("change", ROOT),
+             ("parent", Path(parent).resolve())] if parent else [("change", ROOT)]
+    for _, _, _, _, cell in GUARD_SLICES:
+        got = {}
+        for side, root in sides:
+            out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--guard-steps",
+                                  cell, str(GUARD_STEPS), str(GUARD_SEED)],
+                                 cwd=root, capture_output=True, text=True, timeout=900)
+            require(out.returncode == 0, f"[guard] {side} {cell}: {out.stdout[-2000:]}"
+                    f"{out.stderr[-4000:]}")
+            line = json.loads(out.stdout.strip().splitlines()[-1])
+            require(Path(line["package"]).parent == root,
+                    f"[guard] {side} {cell} imported {line['package']}")
+            got.setdefault(side, []).append(line["steps_per_s"])
+        log(f"[guard] {cell}: control steps/s over {GUARD_STEPS} replayed steps, in turns: "
+            + "; ".join(f"{side} {', '.join(f'{v:.2f}' for v in vals)}"
+                        for side, vals in got.items()))
+
+
 def check_global_scratch(torch) -> None:
     """Phase 3, fourth part: kernel 1's global-scratch variant, which runs
     where a cluster of 16 CTAs cannot hold the state: N=320000 at K=32,
@@ -1845,10 +1986,11 @@ def run_twin_slice(torch, rows: dict) -> None:
     rows["deposit_cic_twin"]["launches"] = launches["deposit_cic"]
     rows["gather_cic_100k"]["launches"] = launches["gather_cic"]
     rows["twin_trajectory"]["launches"] = launches["twin_trajectory"]
+    rows["fidelity_ratio"]["launches"] = launches["fidelity_ratio"]
     log(f"[twin] {steps} control steps; kernel launches in the controlled run: {launches}")
     require(launches["spectral_horizon"] == launches["spectral_horizon_twin"]
-            == launches["twin_trajectory"] == steps,
-            "one corrected spectral_horizon launch and one twin_trajectory launch per solve")
+            == launches["twin_trajectory"] == launches["fidelity_ratio"] == steps,
+            "one corrected spectral_horizon, twin_trajectory and fidelity_ratio launch per solve")
     require(launches["fused_leapfrog_step"] == launches["fused_kdk_horizon"]
             == launches["fused_packed_horizon"] == 0, "no grid planner kernel")
     require(launches["gather_cic"] == 3 * steps, "three gathers per Yoshida-4 step")
@@ -4154,10 +4296,18 @@ def main() -> int:
         "twin_trajectory": dict(
             source="plasma_control_tpu_torch/csrc/twin_trajectory.cu",
             replaces="none: plasma_control_tpu/control/mpc.py::twin_targets, in XLA ops"),
+        "fidelity_ratio": dict(
+            source="plasma_control_tpu_torch/csrc/fidelity_ratio.cu",
+            replaces="none: plasma_control_tpu/control/mpc.py::_fidelity_ratio, in XLA ops"),
+        "fidelity_ratio_grid": dict(
+            source="plasma_control_tpu_torch/csrc/fidelity_ratio.cu",
+            replaces="none: plasma_control_tpu/control/mpc.py::_fidelity_ratio, in XLA ops"),
     }
     timed(check_kernels, torch, rows)
     timed(check_grid_kernels, torch, rows)
     timed(check_twin_kernel, torch, rows)
+    timed(check_guard_kernel, torch, rows)
+    timed(run_guard_turns, torch, None)
     timed(check_global_scratch, torch)
     timed(check_wide_modes, torch)
     timed(check_wide_mesh, torch, rows)
@@ -4223,7 +4373,26 @@ def main() -> int:
     return 0
 
 
+def main_guard(parent: str | None) -> int:
+    """``--guard [PARENT_DIR]``: the card, the build and ``[guard]`` alone."""
+    import torch
+
+    find_card(torch)
+    build_kernels()
+    rows = {row: {} for row, *_ in GUARD_SLICES}
+    timed(check_guard_kernel, torch, rows)
+    timed(run_guard_turns, torch, parent)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0)}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--guard-steps"]:
+        print(json.dumps(guard_cell_steps(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--guard"]:
+        sys.exit(main_guard(sys.argv[2] if len(sys.argv) > 2 else None))
     sys.exit(main())

@@ -68,6 +68,7 @@ from ..ops.deposit import deposit, gather, shape_weights_dense
 from ..ops.fields import electric_energy, solve_e_mesh
 from ..ops.grid import Grid, cached_grid
 from ..ops.integrate import yoshida4_coefficients
+from ..ops.kernels.fidelity_ratio import fidelity_ratio
 from ..ops.kernels.fused_step import fused_leapfrog_step, fused_packed_horizon
 from ..ops.kernels.spectral_horizon import spectral_horizon, use_rot
 from ..ops.kernels.twin_trajectory import (mode_eval, mode_sums, twin_rollout_plain,
@@ -138,22 +139,18 @@ def _plan_frac(cfg: SimConfig, mpc: MPCConfig) -> float:
 def _fidelity_ratio(x: torch.Tensor, cfg: SimConfig, ctrl: ControlConfig,
                     mpc: MPCConfig) -> torch.Tensor:
     """On-device coherent-vs-injected-noise ratio of subsampled planning:
-    the statistics of :func:`plan_fidelity_check` in torch ops, one O(N Km)
-    mode-sum pass over the full state, no host sync."""
-    n = cfg.n_particles
+    the statistics of :func:`plan_fidelity_check`, one O(N Km) mode-sum pass
+    over the full state, no host sync. On the card one launch of
+    :func:`..ops.kernels.fidelity_ratio.fidelity_ratio`; on the CPU its plain
+    version, op by op."""
     km = max(int(mpc.plan_modes), ctrl.max_mode)
-    k = (2.0 * math.pi / cfg.length) * torch.arange(1, km + 1, dtype=x.dtype, device=x.device)
-    t = (2.0 * math.pi / cfg.length) * x.reshape(-1)
-    c, s = mode_sums(torch.cos(t), torch.sin(t), km)
-    modal = (cfg.n0**2 / n) * (c * c + s * s) / (k * k)
-    floor_full = cfg.n0**2 / (k * k)
     frac = _plan_frac(cfg, mpc)
-    coherent = frac * torch.sum(torch.clamp(modal - floor_full, min=0.0))
     injected = sum(
         cfg.n0**2 * (1.0 - frac) / (2.0 * math.pi * m / cfg.length) ** 2
         for m in range(1, km + 1)
     )
-    return coherent / max(injected, 1e-30)
+    return fidelity_ratio(x, n_modes=km, length=cfg.length, n0=cfg.n0,
+                          n_particles=cfg.n_particles, frac=frac, injected=max(injected, 1e-30))
 
 
 def plan_fidelity_check(state: PlasmaState, cfg: SimConfig, ctrl: ControlConfig,

@@ -31,8 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SpectralParams", "TwinParams", "GridParams", "MAX_MODES", "BLOCK_MODES",
-           "MAX_CLUSTER", "SHARED_BYTES", "build", "library", "call", "check"]
+__all__ = ["SpectralParams", "TwinParams", "GridParams", "FidelityParams", "MAX_MODES",
+           "BLOCK_MODES", "MAX_CLUSTER", "SHARED_BYTES", "build", "library", "call", "check"]
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 SOURCE_DIR = _PACKAGE / "csrc"
@@ -89,6 +89,23 @@ class TwinParams(ctypes.Structure):
     ]
 
 
+class FidelityParams(ctypes.Structure):
+    """By-value parameter block of ``pct_fidelity_ratio`` (same layout as
+    ``FidelityParams`` in csrc/fidelity_ratio.cu)."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("x_st", ctypes.c_int),
+        ("km", ctypes.c_int),
+        ("c_ang", ctypes.c_float),
+        ("scale", ctypes.c_float),
+        ("n0sq", ctypes.c_float),
+        ("frac", ctypes.c_float),
+        ("injected", ctypes.c_float),
+        ("k2", ctypes.c_float * MAX_MODES),
+    ]
+
+
 class GridParams(ctypes.Structure):
     """By-value parameter block of ``pct_fused_leapfrog_step`` and
     ``pct_grid_horizon`` (same layout as ``GridParams`` in csrc/fused_step.cu)."""
@@ -122,6 +139,8 @@ _SIGNATURES = {
     "pct_twin_trajectory": [_P, _P, _P, _P, _P, _P, TwinParams, _P],
     # params, global, out max_clusters
     "pct_twin_max_clusters": [TwinParams, _I, ctypes.POINTER(ctypes.c_int)],
+    # x, partials, out, params, ctas, stream
+    "pct_fidelity_ratio": [_P, _P, _P, FidelityParams, _I, _P],
     # x, v, e_ext, eop_t, xo, vo, eo, mesh, b, grid, params, exact, eop_smem, state_smem,
     # stream
     "pct_fused_leapfrog_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, GridParams, _I, _I, _I,

@@ -977,3 +977,142 @@ def test_twin_targets_on_card_launch_the_kernel(dev, gen, monkeypatch):
     ref = [t.double() for t in targets["cpu"]]
     assert _max_err([t.cpu() for t in targets["cuda"]], ref) <= (
         1e-4 * float(max(t.abs().max() for t in ref)))
+
+
+# kernel 8, the fidelity guard's statistic: (N, Km) at the grid slice (5000,
+# 16), the twin slice (100000, 16), a million particles at 32 modes (two
+# blocks of 16 modes over 264 CTAs) and an odd N at Km=5 (the 8-mode code, one
+# CTA)
+GUARD_SHAPES = [(5000, 16), (100_000, 16), (1_000_000, 32), (777, 5)]
+
+
+def _guard_positions(gen, dev, n, amplitude):
+    """Uniform positions displaced by modes 1 and 3 of the given amplitude
+    (made in float64, then rounded to float32)."""
+    x0 = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) * L
+    k1 = 2 * np.pi / L
+    x = x0 + (amplitude / k1) * (torch.sin(k1 * x0) + 0.3 * torch.sin(3 * k1 * x0))
+    return torch.remainder(x, L).float()
+
+
+def _guard_kw(n, km, frac):
+    injected = sum((1.0 - frac) / (2 * np.pi * m / L) ** 2 for m in range(1, km + 1))
+    return dict(n_modes=km, length=L, n0=1.0, n_particles=n, frac=frac, injected=injected)
+
+
+@pytest.mark.parametrize("n,km", GUARD_SHAPES)
+def test_fidelity_ratio_matches_plain(dev, gen, n, km):
+    """The kernel against the plain version in float64 over eight states
+    (amplitudes 0 to 0.5): its largest error at most twice the float32
+    plain version's (the same recurrence, the sums added in another order
+    than torch.sum's), with one float32 rounding of the largest ratio as the
+    least bar (a plain version that happens to round exactly sets none);
+    one launch counted per call."""
+    from plasma_control_tpu_torch.ops.kernels import fidelity_ratio as fr
+
+    kw = _guard_kw(n, km, 0.1)
+    errs, plain_errs, top = [], [], 0.0
+    for amplitude in np.linspace(0.0, 0.5, 8):
+        x = _guard_positions(gen, dev, n, float(amplitude))
+        before = fr.fidelity_ratio.launches
+        got = fr.fidelity_ratio(x, **kw)
+        assert fr.fidelity_ratio.launches == before + 1
+        assert got.shape == () and got.dtype == torch.float32 and got.is_cuda
+        ref = float(fr.fidelity_ratio_plain(x.double(), **kw))
+        errs.append(abs(float(got) - ref))
+        plain_errs.append(abs(float(fr.fidelity_ratio_plain(x, **kw)) - ref))
+        top = max(top, abs(ref))
+    assert top > 0.0
+    bar = 2.0 * max(max(plain_errs), float(torch.finfo(torch.float32).eps) * top)
+    assert max(errs) <= bar, (errs, plain_errs, top)
+
+
+def test_fidelity_ratio_is_deterministic_and_one_device_op(dev, gen, tmp_path):
+    """No float atomics: two launches bitwise equal at both slices' shapes;
+    one kernel on the card per call and no other device op."""
+    from plasma_control_tpu_torch.ops.kernels import fidelity_ratio as fr
+
+    for n, km in GUARD_SHAPES:
+        x = _guard_positions(gen, dev, n, 0.2)
+        kw = _guard_kw(n, km, 0.1)
+        assert torch.equal(fr.fidelity_ratio(x, **kw), fr.fidelity_ratio(x, **kw))
+    names = _device_ops(lambda: fr.fidelity_ratio(x, **kw), tmp_path)
+    assert len(names) == 1 and "fidelity_ratio_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("n,plan,amp_max", [(5000, 1024, 0.3), (100_000, 10_000, 0.1)],
+                         ids=["grid", "twin"])
+def test_fidelity_guard_decides_as_float64(dev, gen, n, plan, amp_max):
+    """Through the guard's threshold (ratio 3) at the grid and twin slices'
+    models: over 121 states the kernel's decision equals the float64 plain
+    version's wherever that ratio lies further than the judge's tie band
+    (1e-3 relative) from the threshold; each side holds a fifth or more of
+    the states."""
+    from plasma_control_tpu_torch.config import ControlConfig, MPCConfig, SimConfig
+    from plasma_control_tpu_torch.control import mpc as port_mpc
+    from plasma_control_tpu_torch.ops.kernels import fidelity_ratio as fr
+
+    cfg = SimConfig(simcase="two-stream", n_particles=n, n_mesh=64, length=L)
+    ctrl = ControlConfig(max_mode=4)
+    mpc = MPCConfig(plan_particles=plan, plan_modes=16)
+    thr = mpc.fidelity_guard_ratio
+    sides = []
+    for amplitude in np.linspace(0.0, amp_max, 121):
+        x = _guard_positions(gen, dev, n, float(amplitude))
+        before = fr.fidelity_ratio.launches
+        got = port_mpc._fidelity_ratio(x, cfg, ctrl, mpc)
+        assert fr.fidelity_ratio.launches == before + 1
+        ref = float(port_mpc._fidelity_ratio(x.cpu().double(), cfg, ctrl, mpc))
+        if abs(ref - thr) > 1e-3 * thr:
+            assert bool(got >= thr) == (ref >= thr), (amplitude, float(got), ref)
+            sides.append(ref >= thr)
+    assert min(sum(sides), len(sides) - sum(sides)) >= 121 // 5, sum(sides)
+
+
+@pytest.mark.parametrize("slice_name", ["grid", "twin"])
+def test_captured_guarded_step_equals_eager(dev, slice_name):
+    """A guarded step captured as a CUDA graph at the grid slice (N=5000,
+    K=512, grid plan model on 1250 particles: the guard stops the solves)
+    and at the twin slice (N=100000, K=1024, twin-corrected plan on 10000):
+    six replays bitwise the eager steps; one
+    launch of kernel 8 per eager step, per warm-up step and at the capture
+    (``plan.guard_kernel`` counted once there), none in a replay."""
+    from plasma_control_tpu_torch.config import ControlConfig, MPCConfig, SimConfig
+    from plasma_control_tpu_torch.io import aot
+    from plasma_control_tpu_torch.models.pic import init_state
+    from plasma_control_tpu_torch.ops.kernels import fidelity_ratio as fr
+    from plasma_control_tpu_torch.utils import trace
+
+    if slice_name == "grid":
+        cfg = SimConfig(simcase="bump-on-tail", n_particles=5000, n_mesh=250, dt=0.1,
+                        length=L, deposit_method="pallas")
+        ctrl = ControlConfig(max_mode=4)
+        mpc = MPCConfig(n_candidates=512, plan_particles=1024, plan_mesh=64, plan_model="grid")
+    else:
+        cfg = SimConfig(simcase="two-stream", n_particles=100_000, n_mesh=256, dt=0.1,
+                        deposit_method="pallas")
+        ctrl = ControlConfig(max_mode=8)
+        mpc = MPCConfig(horizon=10, n_candidates=1024, plan_particles=10_000, plan_mesh=64,
+                        plan_correction="twin")
+    assert mpc.fidelity_guard
+    grid = make_grid(cfg.n_mesh, cfg.length, device=dev)
+    act = make_actuator(cfg.length, cfg.n_mesh, ctrl.max_mode, device=dev)
+    st = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    h, d = mpc.horizon, 2 * ctrl.max_mode
+    before = fr.fidelity_ratio.launches
+    eager = aot.aot_mpc_rollout(aot.control_step_fn(grid, cfg, ctrl, mpc, act), st,
+                                torch.Generator(device=dev).manual_seed(4), 6, h, d)
+    assert fr.fidelity_ratio.launches == before + 6
+    graphed = aot.GraphedStep(aot.control_step_fn(grid, cfg, ctrl, mpc, act))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    before = fr.fidelity_ratio.launches
+    with trace.recording(4096):
+        replay = aot.aot_mpc_rollout(graphed, st, gen, 6, h, d)
+        counted = trace.counters().get("plan.guard_kernel")
+    assert counted == fr.fidelity_ratio.launches - before == aot.GraphedStep.WARMUP + 1
+    for name in ("field_energy", "coeffs", "plan_cost", "final_mean"):
+        assert torch.equal(getattr(eager, name), getattr(replay, name)), name
+    assert torch.equal(eager.final_state.x, replay.final_state.x)
+    assert torch.equal(eager.final_state.v, replay.final_state.v)
+    if slice_name == "grid":  # the guard stops every solve on this plasma
+        assert not eager.coeffs.any() and not eager.final_mean.any()
