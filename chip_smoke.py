@@ -1353,7 +1353,7 @@ def run_kdk_horizon(torch, rows: dict, state) -> None:
 def run_config4(torch) -> None:
     """Phase 4e: three control steps of config-4's full-fidelity controller,
     then kernel 1 against its plain version at that path's shapes."""
-    from plasma_control_tpu_torch.control.mpc import _pad_modes, draw_noise, mpc_rollout
+    from plasma_control_tpu_torch.control.mpc import draw_noise, mpc_rollout
     from plasma_control_tpu_torch.models.pic import init_state
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
 
@@ -1392,7 +1392,7 @@ def run_config4(torch) -> None:
     km = max(int(mpc.plan_modes), ka)
     cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, mpc.horizon, 2 * ka, device=dev),
                        ctrl.coeff_min, ctrl.coeff_max)
-    u_c, u_s = _pad_modes(cand[..., :ka], km), _pad_modes(cand[..., ka:], km)
+    u_c, u_s = (torch.nn.functional.pad(u, (0, km - ka)) for u in (cand[..., :ka], cand[..., ka:]))
     kw = dict(length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, n_particles=cfg.n_particles,
               rot=rot)
     got = sh.spectral_horizon(state.x, state.v, u_c, u_s, **kw)
@@ -1538,7 +1538,7 @@ def run_twin_km32(torch, rows: dict) -> None:
     (the corrected variant beyond 16 modes: K=1024, a 10000-particle plan
     state, clusters of 2 CTAs, shared memory), one corrected launch per
     solve; then that launch against its plain version, timed."""
-    from plasma_control_tpu_torch.control.mpc import _pad_modes, draw_noise, mpc_rollout
+    from plasma_control_tpu_torch.control.mpc import draw_noise, mpc_rollout
     from plasma_control_tpu_torch.models.pic import init_state
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
 
@@ -1567,7 +1567,7 @@ def run_twin_km32(torch, rows: dict) -> None:
     k, h, n = mpc.n_candidates, mpc.horizon, pcfg.n_particles
     rot = sh.use_rot(pcfg.clamped_dt(), pcfg.length, mpc.spectral_drift)
     cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, h, 2 * ka, device=dev), -1.0, 1.0)
-    u_c, u_s = _pad_modes(cand[..., :ka], km), _pad_modes(cand[..., ka:], km)
+    u_c, u_s = (torch.nn.functional.pad(u, (0, km - ka)) for u in (cand[..., :ka], cand[..., ka:]))
     kw = dict(length=pcfg.length, dt=pcfg.clamped_dt(), n0=pcfg.n0, n_particles=n, rot=rot,
               twin_c=tc, twin_s=ts)
     call = lambda: sh.spectral_horizon(pst.x, pst.v, u_c, u_s, **kw)  # noqa: E731
@@ -1680,8 +1680,9 @@ def check_twin_kernel(torch, rows: dict) -> None:
     plain version at the twin slice's plan model and at N=20000, timed;
     kernel 7, the targets, against its plain version at the slice's shapes,
     timed; and the zero-drive identity on the trig drift."""
-    from plasma_control_tpu_torch.control.mpc import _pad_modes, _twin_mode_traj, draw_noise
+    from plasma_control_tpu_torch.control.mpc import draw_noise
     from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
+    from plasma_control_tpu_torch.ops import spectral
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
     from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
 
@@ -1693,7 +1694,7 @@ def check_twin_kernel(torch, rows: dict) -> None:
     ka, km = ctrl.max_mode, max(mpc.plan_modes, ctrl.max_mode)
     k, h, n = mpc.n_candidates, mpc.horizon, pcfg.n_particles
     cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, h, 2 * ka, device=dev), -1.0, 1.0)
-    u_c, u_s = _pad_modes(cand[..., :ka], km), _pad_modes(cand[..., ka:], km)
+    u_c, u_s = (torch.nn.functional.pad(u, (0, km - ka)) for u in (cand[..., :ka], cand[..., ka:]))
     kw = dict(length=pcfg.length, dt=pcfg.clamped_dt(), n0=pcfg.n0, n_particles=n)
 
     # both drifts at the slice's plan model and at N=20000: mode sums reduced
@@ -1787,7 +1788,7 @@ def check_twin_kernel(torch, rows: dict) -> None:
     pst, _, pcfg, mpc, (tc, ts), _ = _twin_plan(torch, coh, dev)
     zero = torch.zeros((1, h, km), device=dev)
     got = sh.spectral_horizon(pst.x, pst.v, zero, zero, rot=False, twin_c=tc, twin_s=ts, **kw)[0]
-    c0, s0 = _twin_mode_traj(pst, pcfg, mpc, km)
+    c0, s0 = spectral.rollout(pst.x, pst.v, zero[0], zero[0], rot=False, **kw)
     kv = (2.0 * math.pi / cfg.length) * torch.arange(1, km + 1, dtype=torch.float64, device=dev)
     ang = kv[:, None] * coh.x.double()[None, :]
     sig2 = torch.clamp(torch.cos(ang).sum(-1) ** 2 + torch.sin(ang).sum(-1) ** 2 - cfg.n_particles,
@@ -2550,7 +2551,7 @@ def run_dagger(torch, rows: dict) -> None:
     from plasma_control_tpu_torch.cli import (add_control_args, add_mpc_args, base_parser,
                                               build_control_config, build_mpc_config,
                                               build_sim_config)
-    from plasma_control_tpu_torch.control.mpc import _pad_modes, draw_noise, plan
+    from plasma_control_tpu_torch.control.mpc import draw_noise, plan
     from plasma_control_tpu_torch.control.rl.dagger import dagger_train, fit_bc
     from plasma_control_tpu_torch.control.rl.ddpg import DDPGConfig, make_ddpg
     from plasma_control_tpu_torch.models.pic import init_state
@@ -2613,7 +2614,7 @@ def run_dagger(torch, rows: dict) -> None:
     ka, km = ctrl.max_mode, max(int(mpc.plan_modes), ctrl.max_mode)
     cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, mpc.horizon, 2 * ka, device=dev),
                        ctrl.coeff_min, ctrl.coeff_max)
-    u_c, u_s = _pad_modes(cand[..., :ka], km), _pad_modes(cand[..., ka:], km)
+    u_c, u_s = (torch.nn.functional.pad(u, (0, km - ka)) for u in (cand[..., :ka], cand[..., ka:]))
     rot = sh.use_rot(cfg.clamped_dt(), cfg.length, mpc.spectral_drift)
     kw = dict(length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, n_particles=cfg.n_particles,
               rot=rot, n_modes=km)

@@ -24,10 +24,12 @@ control step:
    ``plan_integrator="kdk"`` in one launch of the merged-kick horizon kernel,
    with ``"leapfrog"`` in H launches of the fused leapfrog step
    (:mod:`..ops.kernels.fused_step`), with ``"env"`` as a Yoshida-4 step
-   batched over K through the CIC kernels. On CPU tensors the op-by-op
-   counterparts run (K as a batch dimension, a loop over H), as the JAX
-   package's CPU ``"auto"`` does; ``plan_kernel="fused"`` there takes the
-   spectral kernel's plain version;
+   batched over K through the CIC kernels. On CPU tensors the spectral
+   model goes through the same wrappers, which run the kernels' plain
+   versions (:mod:`..ops.spectral`); ``plan_kernel="auto"`` and ``"xla"``
+   there take the trig drift of the JAX package's CPU scan. The grid model
+   runs op by op (K as a batch dimension, a loop over H), as the JAX
+   package's CPU ``"auto"`` does;
 6. MPPI softmax update (or ``n_iters`` CEM refits on the ``n_elites``
    best, steps 4-5 repeated), then the fidelity guard: a reduced-fidelity
    solve whose plan-frame coherent signal is not ``fidelity_guard_ratio``
@@ -52,13 +54,11 @@ Pallas CIC kernels, and the CIC kernels here have no backward pass either:
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ControlConfig, MPCConfig, SimConfig
@@ -71,8 +71,8 @@ from ..ops.integrate import yoshida4_coefficients
 from ..ops.kernels.fidelity_ratio import fidelity_ratio
 from ..ops.kernels.fused_step import fused_leapfrog_step, fused_packed_horizon
 from ..ops.kernels.spectral_horizon import spectral_horizon, use_rot
-from ..ops.kernels.twin_trajectory import (mode_eval, mode_sums, twin_rollout_plain,
-                                           twin_trajectory)
+from ..ops.kernels.twin_trajectory import twin_trajectory
+from ..ops.spectral import constants
 from ..utils import trace
 from .actuator import FourierActuator, make_actuator
 from .feedback import feedback_coefficients
@@ -94,13 +94,22 @@ class MPCOutput(NamedTuple):
     final_mean: torch.Tensor  # (H, 2K) shifted nominal after the last solve
 
 
+def _subsample(cfg: SimConfig, mpc: MPCConfig) -> tuple[int, int]:
+    """(stride, n_eff) of the plan's particle subsample x[::stride]: stride
+    N // plan_particles (1 without a reduction), n_eff = ceil(N / stride)."""
+    n = cfg.n_particles
+    if mpc.plan_particles is None or mpc.plan_particles >= n:
+        return 1, n
+    stride = max(1, n // mpc.plan_particles)
+    return stride, -(-n // stride)
+
+
 def _reduced_model(grid: Grid, cfg: SimConfig, mpc: MPCConfig, dtype=torch.float32):
     """Static half of the multi-fidelity reduction: (plan_grid, plan_cfg),
     the plan grid built on the device of ``grid``."""
     plan_cfg, plan_grid = cfg, grid
-    if mpc.plan_particles is not None and mpc.plan_particles < cfg.n_particles:
-        stride = max(1, cfg.n_particles // mpc.plan_particles)
-        n_eff = -(-cfg.n_particles // stride)
+    stride, n_eff = _subsample(cfg, mpc)
+    if stride > 1:
         plan_cfg = dataclasses.replace(plan_cfg, n_particles=n_eff)
     if mpc.plan_mesh is not None and mpc.plan_mesh < cfg.n_mesh:
         plan_cfg = dataclasses.replace(plan_cfg, n_mesh=mpc.plan_mesh)
@@ -112,8 +121,8 @@ def _reduce_state(state: PlasmaState, cfg: SimConfig, mpc: MPCConfig) -> PlasmaS
     """Dynamic half of the reduction: the strided particle subsample, which
     keeps the beam-ordering mixture proportions of the initial
     distributions."""
-    if mpc.plan_particles is not None and mpc.plan_particles < cfg.n_particles:
-        stride = max(1, cfg.n_particles // mpc.plan_particles)
+    stride = _subsample(cfg, mpc)[0]
+    if stride > 1:
         return PlasmaState(state.x[::stride], state.v[::stride])
     return state
 
@@ -125,15 +134,19 @@ def _plan_model(state: PlasmaState, grid: Grid, cfg: SimConfig, mpc: MPCConfig):
 
 
 def _plan_frac(cfg: SimConfig, mpc: MPCConfig) -> float:
-    """Actual planned-particle fraction n_eff/N under the stride arithmetic
-    of :func:`_reduce_state` (stride = N // plan_particles, n_eff =
-    ceil(N/stride)), not plan_particles/N; 1.0 when the stride is 1."""
-    n = cfg.n_particles
-    if mpc.plan_particles is None or mpc.plan_particles >= n:
-        return 1.0
-    stride = max(1, n // mpc.plan_particles)
-    n_eff = -(-n // stride)
-    return min(n_eff / n, 1.0)
+    """Actual planned-particle fraction n_eff/N of :func:`_subsample`, not
+    plan_particles/N; 1.0 when the stride is 1."""
+    return _subsample(cfg, mpc)[1] / cfg.n_particles
+
+
+def _guard_terms(cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig):
+    """(Km, frac, injected) of the fidelity guard: the plan model's modes,
+    the plan's particle fraction and the sampling noise ``n0^2 (1 - frac)
+    sum_m 1/k_m^2`` that the subsample injects into those modes."""
+    km = max(int(mpc.plan_modes), ctrl.max_mode)
+    frac = _plan_frac(cfg, mpc)
+    inv_k2 = constants(km, cfg.length, cfg.n0, cfg.n_particles)[2]
+    return km, frac, cfg.n0**2 * (1.0 - frac) * sum(inv_k2)
 
 
 def _fidelity_ratio(x: torch.Tensor, cfg: SimConfig, ctrl: ControlConfig,
@@ -143,12 +156,7 @@ def _fidelity_ratio(x: torch.Tensor, cfg: SimConfig, ctrl: ControlConfig,
     over the full state, no host sync. On the card one launch of
     :func:`..ops.kernels.fidelity_ratio.fidelity_ratio`; on the CPU its plain
     version, op by op."""
-    km = max(int(mpc.plan_modes), ctrl.max_mode)
-    frac = _plan_frac(cfg, mpc)
-    injected = sum(
-        cfg.n0**2 * (1.0 - frac) / (2.0 * math.pi * m / cfg.length) ** 2
-        for m in range(1, km + 1)
-    )
+    km, frac, injected = _guard_terms(cfg, ctrl, mpc)
     return fidelity_ratio(x, n_modes=km, length=cfg.length, n0=cfg.n0,
                           n_particles=cfg.n_particles, frac=frac, injected=max(injected, 1e-30))
 
@@ -164,20 +172,19 @@ def plan_fidelity_check(state: PlasmaState, cfg: SimConfig, ctrl: ControlConfig,
     coherent part is at least ``mpc.fidelity_guard_ratio`` times the injected
     noise, the threshold of the per-solve guard. The JAX package's docstring
     gives the physics and the measurements behind it. Host numpy, one pass
-    over the full state; returns {"coherent_pe", "injected_noise_pe",
+    over the full state, in the JAX package's ops (the float32 positions'
+    phases in float32); returns {"coherent_pe", "injected_noise_pe",
     "ratio", "safe"}.
     """
     n = cfg.n_particles
-    km = max(int(mpc.plan_modes), ctrl.max_mode)
-    k = (2.0 * np.pi / cfg.length) * np.arange(1, km + 1)
+    km, frac, injected = _guard_terms(cfg, ctrl, mpc)
+    k = np.array(constants(km, cfg.length, cfg.n0, n)[0])
     t = (2.0 * np.pi / cfg.length) * state.x.detach().reshape(-1).cpu().numpy()
     c = np.stack([np.sum(np.cos(m * t)) for m in range(1, km + 1)])
     s = np.stack([np.sum(np.sin(m * t)) for m in range(1, km + 1)])
     modal = (cfg.n0**2 / n) * (c * c + s * s) / (k * k)
     floor_full = cfg.n0**2 / (k * k)
-    frac = _plan_frac(cfg, mpc)
     coherent = frac * float(np.sum(np.maximum(modal - floor_full, 0.0)))
-    injected = float(np.sum(cfg.n0**2 * (1.0 - frac) / (k * k)))
     ratio = coherent / injected if injected > 0 else float("inf")
     return {
         "coherent_pe": coherent,
@@ -444,87 +451,15 @@ def draw_noise(gen, mpc: MPCConfig, horizon: int, dim: int, dtype=torch.float32,
     return base(k)
 
 
-def _pad_modes(u_half: torch.Tensor, km: int) -> torch.Tensor:
-    """(..., ka) -> (..., km) zero padding of the actuator's coefficients."""
-    return F.pad(u_half, (0, km - u_half.shape[-1]))
-
-
-def _horizon_cost_spectral(
-    state: PlasmaState,
-    coeff_seqs: torch.Tensor,  # (..., H, 2K)
-    cfg: SimConfig,
-    mpc: MPCConfig,
-    actuator: FourierActuator,
-    twin_target=None,  # optional ((H, Km), (H, Km)) noise-correction targets
-) -> torch.Tensor:
-    """Gridless low-mode spectral rollout cost of a batch of candidates, op
-    by op (the JAX package's per-candidate scan with the candidates as a
-    batch dimension): the same staggered KDK with merged half-kicks, the
-    same initial un-merged half-kick and post-drift PE as the kernel, with
-    the per-mode constants in float32 as there. With ``twin_target`` each
-    step's PE is the corrected ``|phasor - target|^2`` form. Returns (...,)
-    costs."""
-    n_p = cfg.n_particles
-    ka = actuator.max_mode
-    km = max(int(mpc.plan_modes), ka)
-    dt = cfg.clamped_dt()
-    x, dtype = state.x, state.x.dtype
-    two_pi_over_l = 2.0 * math.pi / cfg.length
-    k = two_pi_over_l * torch.arange(1, km + 1, dtype=dtype, device=x.device)
-    g = 2.0 * cfg.n0 / (n_p * k)
-    inv_k2 = 1.0 / (k * k)
-    pe_scale = cfg.n0**2 / n_p * _pe_factor(cfg, mpc)
-
-    u_c = _pad_modes(coeff_seqs[..., :ka], km)
-    u_s = _pad_modes(coeff_seqs[..., ka:], km)
-    pair_c = torch.cat([u_c[..., 1:, :], u_c[..., -1:, :]], dim=-2) + u_c
-    pair_s = torch.cat([u_s[..., 1:, :], u_s[..., -1:, :]], dim=-2) + u_s
-
-    # initial (un-merged) half-kick at the current positions
-    t0 = two_pi_over_l * x
-    c1_0, s1_0 = torch.cos(t0), torch.sin(t0)
-    c0, s0 = mode_sums(c1_0, s1_0, km)
-    pc0 = g * s0 + u_c[..., 0, :]
-    ps0 = -(g * c0) + u_s[..., 0, :]
-    vh = state.v + 0.5 * dt * (-mode_eval(c1_0, s1_0, pc0, ps0))
-
-    costs, pes = [], []
-    for t in range(coeff_seqs.shape[-2]):
-        x = torch.remainder(x + dt * vh, cfg.length)
-        ang = two_pi_over_l * x
-        c1, s1 = torch.cos(ang), torch.sin(ang)
-        c, s = mode_sums(c1, s1, km)
-        pc = 2.0 * (g * s) + pair_c[..., t, :]
-        ps = 2.0 * (-g * c) + pair_s[..., t, :]
-        vh = vh + 0.5 * dt * (-mode_eval(c1, s1, pc, ps))
-        if twin_target is not None:
-            c, s = c - twin_target[0][t], s - twin_target[1][t]
-        pe = pe_scale * torch.sum((c * c + s * s) * inv_k2, dim=-1)
-        costs.append(mpc.w_field * pe + mpc.w_input * actuator.input_energy(coeff_seqs[..., t, :]))
-        pes.append(pe)
-    total = _add_terminal(torch.stack(costs, -1).sum(-1), torch.stack(pes, -1), mpc)
-    return _finite_or_huge(total)
-
-
-def _twin_mode_traj(state: PlasmaState, cfg: SimConfig, mpc: MPCConfig, km: int):
-    """Zero-drive twin of the spectral plan rollout, op by op
-    (:func:`..ops.kernels.twin_trajectory.twin_rollout_plain`): the (H, Km)
-    mode-sum trajectory of the plan state under no external drive, with the
-    discretization of the candidate rollouts and the exact trig drift, as in
-    the JAX package. A zero-drive candidate on the op-by-op path reproduces
-    it; on the kernel's rot drift a small residual survives the difference."""
-    return twin_rollout_plain(state.x, state.v, n_modes=km, horizon=mpc.horizon,
-                              length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0,
-                              n_particles=cfg.n_particles)
-
-
 def twin_targets(full_x: torch.Tensor, plan_state: PlasmaState, plan_cfg: SimConfig,
                  full_cfg: SimConfig, ctrl: ControlConfig, mpc: MPCConfig):
     """Noise-correction targets of subsampled spectral planning, or None.
 
     Returns ``(tc, ts)``, each (H, Km): the per-mode noise fraction
-    ``rho_m = 1 - lambda_m`` times the zero-drive twin's mode-sum trajectory
-    (:func:`_twin_mode_traj`). ``lambda_m`` is the Wiener shrinkage of the
+    ``rho_m = 1 - lambda_m`` times the mode-sum trajectory of the plan
+    state's zero-drive twin (:func:`..ops.spectral.rollout` with no drive
+    and the exact trig drift, the discretization of the candidate rollouts).
+    ``lambda_m`` is the Wiener shrinkage of the
     subsample's mode phasor, estimated once per solve from the full state:
     with coherent power ``sig2_m = max(C_m^2 + S_m^2 - N, 0)``, subsample
     fraction r = n/N and subsample noise power n (1 - r),
@@ -552,7 +487,9 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator, twin_target=Non
     through the kernels: the spectral model through the spectral horizon
     kernel (its corrected variant with a target), the grid model through the
     fused grid kernels (``"kdk"``, ``"leapfrog"``) or the CIC kernels
-    (``"env"``). No shape falls back to plain PyTorch on the card.
+    (``"env"``). No shape falls back to plain PyTorch on the card. On CPU
+    tensors the spectral model runs the spectral horizon kernel's plain
+    version, the grid model op by op.
 
     ``mpc.plan_chunk`` scores the candidates in sequential chunks of that
     size, one kernel launch each; the last chunk is padded with copies of
@@ -581,12 +518,12 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator, twin_target=Non
             return _horizon_cost_steps(state, coeff_seqs, grid, cfg, mpc, actuator)
     ka = actuator.max_mode
     km = max(int(mpc.plan_modes), ka)
-    if not state.x.is_cuda and mpc.plan_kernel != "fused":
-        with trace.span("plan.kernel"):  # the kernel's op-by-op counterpart
-            return _horizon_cost_spectral(state, coeff_seqs, cfg, mpc, actuator, twin_target)
-    # "xla" names the op-by-op scan, whose drift is trig; on the card it runs
-    # as the kernel's trig variant
-    drift = "trig" if mpc.plan_kernel == "xla" else mpc.spectral_drift
+    # "xla" names the op-by-op scan, whose drift is trig, and so does "auto"
+    # on the CPU, where the JAX package runs the scan; on the card "auto"
+    # takes the configured drift
+    drift = mpc.spectral_drift
+    if mpc.plan_kernel == "xla" or (mpc.plan_kernel == "auto" and not state.x.is_cuda):
+        drift = "trig"
     tc, ts = (None, None) if twin_target is None else twin_target
     with trace.span("plan.kernel"):
         pe = spectral_horizon(

@@ -28,11 +28,13 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["SpectralParams", "TwinParams", "GridParams", "FidelityParams", "MAX_MODES",
-           "BLOCK_MODES", "MAX_CLUSTER", "SHARED_BYTES", "build", "library", "call", "check"]
+__all__ = ["SpectralParams", "TwinParams", "GridParams", "FidelityParams", "Geometry", "MAX_MODES",
+           "BLOCK_MODES", "MAX_CLUSTER", "SHARED_BYTES", "REDUCTION_BYTES", "BLOCK_COEF_BYTES",
+           "KIND_ID", "build", "library", "call", "check", "check_device"]
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 SOURCE_DIR = _PACKAGE / "csrc"
@@ -47,6 +49,24 @@ MAX_MODES = 64  # kMaxModes of csrc/spectral_horizon.cuh: the largest Km
 BLOCK_MODES = 16  # kBlockModes: Km beyond it runs in blocks of 16 modes
 MAX_CLUSTER = 16  # kMaxCluster of csrc/spectral_horizon.cuh: Hopper's largest (non-portable) cluster
 SHARED_BYTES = 232448  # shared memory one CTA may use on Hopper
+# static shared memory of csrc/spectral_horizon.cuh, which kernels 1 and 7
+# share: the reduction scratch (sizeof(Reduction)), and the coefficients of
+# every block of modes (sizeof(BlockCoefs)), which kernel 1 holds for Km > 16
+REDUCTION_BYTES = 1408
+BLOCK_COEF_BYTES = 4 * 2 * MAX_MODES
+# the shape-function kind as csrc/cic.cu and csrc/fused_step.cu take it
+KIND_ID = {"cic": 0, "tsc": 1, "tsc_standard": 2}
+
+
+class Geometry(NamedTuple):
+    """Launch geometry of kernels 1 and 7: a cluster of ``cluster`` CTAs, CTA
+    r holding particles [r * slice, min((r + 1) * slice, N)) in
+    ``shared_bytes`` of dynamic shared memory; 0 shared bytes: the slices
+    live in a global scratch."""
+
+    cluster: int
+    slice: int
+    shared_bytes: int
 
 
 class SpectralParams(ctypes.Structure):
@@ -239,6 +259,15 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().pct_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def check_device(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise on any other."""
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+    return False
 
 
 def call(name: str, index: int, *args) -> None:

@@ -28,10 +28,10 @@ import torch
 from ...utils.debug import check_kernel
 from ..deposit import shape_weights_from_offset
 from . import _build
+from ._build import KIND_ID, check_device
 
 __all__ = ["deposit_cic", "gather_cic", "deposit_cic_plain", "gather_cic_plain"]
 
-_KIND_ID = {"cic": 0, "tsc": 1, "tsc_standard": 2}
 _MAX_BATCH = 65535  # gridDim.y
 _MAX_MESH = 12288  # the gather stages a field row in 48 KB of shared memory, the deposit
                    # keeps 96 KB of fixed-point counts
@@ -71,15 +71,6 @@ def gather_cic_plain(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int, length:
     return (w * taps).sum(-1)
 
 
-def _check_device(x: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raise on any other."""
-    if x.is_cuda:
-        return True
-    if x.device.type != "cpu":
-        raise RuntimeError(f"{what}: no kernel for device {x.device}")
-    return False
-
-
 @functools.lru_cache(maxsize=None)
 def _multiprocessors(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -108,7 +99,7 @@ def deposit_cic(x: torch.Tensor, n_mesh: int, length: float, kind: str = "cic",
     kernel writes every cell). Inputs in another layout are made contiguous
     first."""
     if x.get_device() < 0:
-        _check_device(x, "deposit_cic")
+        check_device(x, "deposit_cic")
         return deposit_cic_plain(x, n_mesh, length, kind, scale)
     return _deposit_cuda(x, n_mesh, length, kind, scale, None)
 
@@ -132,7 +123,7 @@ def _deposit_cuda(x, n_mesh, length, kind, scale, cluster):
             raise ValueError(f"deposit_cic: batch {b} beyond the kernel's limit {_MAX_BATCH}")
         c = deposit_cluster(n, b, index) if cluster is None else cluster
         _build.call("pct_cic_deposit", index, x.data_ptr(), out.data_ptr(), b, n, n_mesh,
-                    length, 1.0 / (length / n_mesh), scale, _KIND_ID[kind], c)
+                    length, 1.0 / (length / n_mesh), scale, KIND_ID[kind], c)
         deposit_cic.launches += 1
         check_kernel("deposit_cic", (x,), (out,))
     return out
@@ -169,7 +160,7 @@ def gather_cic(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int, length: float
     the current device. Inputs in another layout are made contiguous first."""
     index = x.get_device()
     if index < 0:
-        _check_device(x, "gather_cic")
+        check_device(x, "gather_cic")
         return gather_cic_plain(e_mesh, x, n_mesh, length, kind)
     one_row = e_mesh.dim() == 1
     if not (x.dtype is _F32 and e_mesh.dtype is _F32 and e_mesh.get_device() == index
@@ -184,7 +175,7 @@ def gather_cic(e_mesh: torch.Tensor, x: torch.Tensor, n_mesh: int, length: float
             raise ValueError(f"gather_cic: batch {b} beyond the kernel's limit {_MAX_BATCH}")
         _build.call("pct_cic_gather", index, e_mesh.data_ptr(), x.data_ptr(), out.data_ptr(), b, n,
                     n_mesh, 0 if one_row else n_mesh, length, 1.0 / (length / n_mesh),
-                    _KIND_ID[kind])
+                    KIND_ID[kind])
         gather_cic.launches += 1
         check_kernel("gather_cic", (e_mesh, x), (out,))
     return out

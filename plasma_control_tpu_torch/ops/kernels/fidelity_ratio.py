@@ -10,8 +10,8 @@ with ``mpc.fidelity_guard_ratio``: the full state's modal power
 clamped at 0 and summed over m = 1..Km, times the plan's particle fraction,
 over the injected noise power (a host constant).
 
-The plain version is the op-by-op code the port ran on every device before
-the kernel; CPU tensors still take it. On the card the whole statistic is one
+The plain version states it with the coherent power of :mod:`..spectral`;
+CPU tensors take it. On the card the whole statistic is one
 launch (:func:`launch_ctas` CTAs); the design note at the top of the CUDA
 source says what bounds it.
 """
@@ -25,8 +25,8 @@ import torch
 
 from ...utils import trace
 from ...utils.debug import check_kernel
+from .. import spectral
 from . import _build
-from .twin_trajectory import mode_sums
 
 __all__ = ["fidelity_ratio", "fidelity_ratio_plain", "launch_ctas"]
 
@@ -35,14 +35,14 @@ _MAX_CTAS = 264  # kMaxCtas of the source: two CTAs per SM of an H100
 
 
 def fidelity_ratio_plain(x, *, n_modes, length, n0, n_particles, frac, injected):
-    """Plain version: x (N,) -> the 0-dim ratio, in the dtype of x."""
-    k = (2.0 * math.pi / length) * torch.arange(1, n_modes + 1, dtype=x.dtype, device=x.device)
-    t = (2.0 * math.pi / length) * x.reshape(-1)
-    c, s = mode_sums(torch.cos(t), torch.sin(t), n_modes)
-    modal = (n0**2 / n_particles) * (c * c + s * s) / (k * k)
-    floor_full = n0**2 / (k * k)
-    coherent = frac * torch.sum(torch.clamp(modal - floor_full, min=0.0))
-    return coherent / injected
+    """Plain version: x (N,) -> the 0-dim ratio, in the dtype of x:
+    ``frac (n0^2/N) sum_m sig2_m / k_m^2 / injected`` with the coherent power
+    ``sig2_m = max(c_m^2 + s_m^2 - N, 0)`` of :func:`..spectral.coherent_power`,
+    which equals the modal power less its floor, clamped."""
+    _, _, inv_k2, scale = spectral.constants(n_modes, length, n0, n_particles)
+    power = spectral.coherent_power(x.reshape(-1), n_modes, length)
+    inv_k2 = torch.tensor(inv_k2, dtype=x.dtype, device=x.device)
+    return frac * (scale * torch.sum(power * inv_k2)) / injected
 
 
 def launch_ctas(n: int) -> int:
@@ -53,11 +53,11 @@ def launch_ctas(n: int) -> int:
 @functools.lru_cache(maxsize=64)
 def _params(n, x_st, km, length, n0, n_particles, frac, injected):
     """The kernel's parameter block, built once per shape and model."""
-    k = [2.0 * math.pi * m / length for m in range(1, km + 1)]
+    k = spectral.constants(km, length, n0, n_particles)[0]
     params = _build.FidelityParams(n=n, x_st=x_st, km=km, c_ang=2.0 * math.pi / length,
                                    scale=n0**2 / n_particles, n0sq=n0**2, frac=frac,
                                    injected=injected)
-    params.k2[:km] = [float(v * v) for v in k]
+    params.k2[:km] = [v * v for v in k]
     return params
 
 

@@ -39,7 +39,8 @@ import torch
 
 from ...utils.debug import check_kernel
 from . import _build
-from .cic import _KIND_ID, _check_device, deposit_cic_plain, gather_cic_plain
+from ._build import KIND_ID, check_device
+from .cic import deposit_cic_plain, gather_cic_plain
 
 __all__ = [
     "fused_leapfrog_step",
@@ -115,7 +116,7 @@ def fused_packed_horizon_plain(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, 
 def _params(n, m, h, kind, length, dt, n0):
     dx = length / m
     return _build.GridParams(
-        n=n, m=m, h=h, kind=_KIND_ID[kind], dt=dt, half_dt=0.5 * dt, length=length,
+        n=n, m=m, h=h, kind=KIND_ID[kind], dt=dt, half_dt=0.5 * dt, length=length,
         inv_dx=1.0 / dx, norm=n0 * length / n / dx, n0=n0, half_dx=0.5 * dx,
     )
 
@@ -242,7 +243,7 @@ def fused_leapfrog_step(x, v, e_ext, e_op_t, *, n_mesh, length, dt, n0=1.0, exac
     post-step positions when ``exact``, else the kick-stage field.
     """
     kw = dict(n_mesh=n_mesh, length=length, dt=dt, n0=n0, exact=exact, kind=kind)
-    if not _check_device(x, "fused_leapfrog_step"):
+    if not check_device(x, "fused_leapfrog_step"):
         return fused_leapfrog_step_plain(x, v, e_ext, e_op_t, **kw)
     return _leapfrog_cuda(x, v, e_ext, e_op_t, **kw)
 
@@ -274,7 +275,7 @@ def fused_kdk_horizon(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0=1.0, k
     """K candidate H-step explicit KDK rollouts from the shared state x, v
     (N,) under drive fields u_mesh_seq (K, H, M): (K, H) per-step
     ``0.5 * sum(E_self^2) * dx`` (callers apply the N/L rescale)."""
-    if not _check_device(x, "fused_kdk_horizon"):
+    if not check_device(x, "fused_kdk_horizon"):
         return fused_kdk_horizon_plain(x, v, u_mesh_seq, e_op_t, n_mesh=n_mesh, length=length,
                                        dt=dt, n0=n0, kind=kind)
     pe = _horizon_cuda(x, v, u_mesh_seq, e_op_t, n_mesh=n_mesh, length=length, dt=dt, n0=n0,
@@ -289,7 +290,7 @@ fused_kdk_horizon.launches = 0
 def fused_packed_horizon(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0=1.0, kind="cic"):
     """Staggered-KDK horizon with merged half-kicks; the contract of
     :func:`fused_kdk_horizon`."""
-    if not _check_device(x, "fused_packed_horizon"):
+    if not check_device(x, "fused_packed_horizon"):
         return fused_packed_horizon_plain(x, v, u_mesh_seq, e_op_t, n_mesh=n_mesh,
                                           length=length, dt=dt, n0=n0, kind=kind)
     pe = _horizon_cuda(x, v, u_mesh_seq, e_op_t, n_mesh=n_mesh, length=length, dt=dt, n0=n0,

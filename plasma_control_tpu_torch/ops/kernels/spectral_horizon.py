@@ -9,11 +9,13 @@ low-mode PIC model and returns the (K, H) post-drift field energies
 CUDA source says what bounds it on the H100 and how the kernel keeps each
 candidate's particle state in shared memory for the whole horizon.
 
-The plain version follows the TPU kernel op by op (same constants, same
-order of operations), so on CPU tensors it stands in for the kernel in the
-parity tests. Drift variants: ``rot`` (small-angle rotation of the carried
-base-harmonic phasor) and ``trig`` (wrap, then cos/sin). With the (H, Km)
-noise-correction targets ``twin_c``, ``twin_s`` of
+The plain version is the plan model of :mod:`..spectral`, its rollout and
+field energy: the TPU kernel's constants and order of operations, except
+that the energy sums its modes at the end. On CPU tensors it stands in for
+the kernel, in the planner and in the parity tests. Drift variants: ``rot``
+(small-angle rotation of the carried base-harmonic phasor) and ``trig``
+(wrap, then cos/sin). With the (H, Km) noise-correction targets
+``twin_c``, ``twin_s`` of
 :func:`plasma_control_tpu_torch.control.mpc.twin_targets`, both compute the
 TPU kernel's twin-corrected energies
 ``n0^2/N * sum_m ((c_m - tc)^2 + (s_m - ts)^2) / k_m^2`` (the kernel's
@@ -37,7 +39,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,7 +46,9 @@ import torch.nn.functional as F
 
 from ...utils import trace
 from ...utils.debug import check_kernel
+from .. import spectral
 from . import _build
+from ._build import Geometry
 
 __all__ = [
     "Geometry",
@@ -58,12 +61,6 @@ __all__ = [
     "use_rot",
 ]
 
-# shared memory left for a CTA's slice of the particle state beside the
-# kernel's static shared memory: the reduction scratch (sizeof(Reduction) in
-# the source), and for Km > 16 the coefficients of every block of modes
-# (sizeof(BlockCoefs))
-_REDUCTION_BYTES = 1408
-_BLOCK_COEF_BYTES = 4 * 2 * _build.MAX_MODES
 # a slice of at most 64 KiB leaves room for three CTAs per SM, the rot
 # kernel's register budget; a sweep on the H100 found the smallest such
 # cluster fastest at every main-path shape (PERF.md §6)
@@ -90,8 +87,8 @@ def spectral_horizon_supported(n_particles: int, km: int) -> bool:
 
 def _state_limit(km: int) -> int:
     """Bytes of shared memory a CTA's slice of the state may take at Km."""
-    blocks = _BLOCK_COEF_BYTES if km > _build.BLOCK_MODES else 0
-    return _build.SHARED_BYTES - _REDUCTION_BYTES - blocks
+    blocks = _build.BLOCK_COEF_BYTES if km > _build.BLOCK_MODES else 0
+    return _build.SHARED_BYTES - _build.REDUCTION_BYTES - blocks
 
 
 def _state_floats(rot: bool, in_global: bool = False) -> int:
@@ -102,17 +99,6 @@ def _state_floats(rot: bool, in_global: bool = False) -> int:
     if in_global:
         return 3 if rot else 2
     return 3 if rot else 4
-
-
-class Geometry(NamedTuple):
-    """Launch geometry of one candidate: a cluster of ``cluster`` CTAs, CTA r
-    holding particles [r * slice, min((r + 1) * slice, N)) in
-    ``shared_bytes`` of dynamic shared memory; 0 shared bytes: the slices
-    live in a global scratch."""
-
-    cluster: int
-    slice: int
-    shared_bytes: int
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,19 +132,6 @@ def scratch_shape(k: int, geometry: Geometry, rot: bool) -> tuple[int, int] | No
     return k * geometry.cluster, _state_floats(rot, in_global=True) * geometry.slice
 
 
-def _constants(km: int, length: float, n0: float, n_particles: int):
-    """Per-mode constants in float64, as the TPU kernel's wrapper builds them."""
-    kv = 2.0 * np.pi / length * np.arange(1, km + 1)
-    g = 2.0 * n0 / (n_particles * kv)
-    inv_k2 = 1.0 / (kv * kv)
-    return g, inv_k2, n0**2 / n_particles
-
-
-def _pairs(u: torch.Tensor) -> torch.Tensor:
-    """pair_t = u_t + u_{t+1} along the horizon; the last is 2 u_{H-1}."""
-    return torch.cat([u[:, 1:], u[:, -1:]], dim=1) + u
-
-
 def spectral_horizon_plain(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot,
                            twin_c=None, twin_s=None, n_modes=None):
     """Plain version: x0, v0 (N,); u_c, u_s (K, H, Ka), zero-padded to
@@ -167,71 +140,10 @@ def spectral_horizon_plain(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     if n_modes is not None:
         u_c = F.pad(u_c, (0, n_modes - u_c.shape[-1]))
         u_s = F.pad(u_s, (0, n_modes - u_s.shape[-1]))
-    k_cand, horizon, km = u_c.shape
-    g, inv_k2, pe_scale = _constants(km, length, n0, n_particles)
-    g, inv_k2 = [float(v) for v in g], [float(v) for v in inv_k2]
-    c_ang = 2.0 * np.pi / length
-    pair_c, pair_s = _pairs(u_c), _pairs(u_s)
-    x0 = x0.to(torch.float32)
-    ones = torch.ones_like(x0)
-
-    # initial un-merged half kick at the shared x0
-    t0 = c_ang * x0
-    raw_c0 = torch.cos(t0)
-    twoc_0 = raw_c0 + raw_c0
-    c1_0, s1_0 = raw_c0, torch.sin(t0)
-    c_prev2, s_prev2, c_prev, s_prev = ones, torch.zeros_like(x0), c1_0, s1_0
-    acc0 = torch.zeros((k_cand, x0.shape[0]), dtype=torch.float32, device=x0.device)
-    for m in range(km):
-        if m > 0:
-            c_prev2, c_prev = c_prev, twoc_0 * c_prev - c_prev2
-            s_prev2, s_prev = s_prev, twoc_0 * s_prev - s_prev2
-        cm, sm = torch.sum(c_prev), torch.sum(s_prev)
-        pc0 = g[m] * sm + u_c[:, 0, m : m + 1]  # (K, 1)
-        ps0 = -(g[m] * cm) + u_s[:, 0, m : m + 1]
-        acc0 = acc0 + pc0 * c_prev + ps0 * s_prev
-    vh = v0.to(torch.float32) + 0.5 * dt * (-acc0)
-    if rot:
-        c1, s1 = c1_0.expand_as(vh), s1_0.expand_as(vh)
-    else:
-        x = x0.expand_as(vh)
-
-    inv_l = 1.0 / length
-    pes = []
-    for t in range(horizon):
-        if rot:
-            d = (c_ang * dt) * vh
-            d2 = d * d
-            cd = 1.0 + d2 * (-0.5 + d2 * (1.0 / 24.0))
-            sd = d * (1.0 + d2 * (-1.0 / 6.0 + d2 * (1.0 / 120.0)))
-            c1, s1 = c1 * cd - s1 * sd, s1 * cd + c1 * sd
-            c_prev, s_prev = c1, s1
-            twoc = c1 + c1
-        else:
-            x = x + dt * vh
-            x = x - length * torch.floor(x * inv_l)
-            ang = c_ang * x
-            c_prev, s_prev = torch.cos(ang), torch.sin(ang)
-            twoc = c_prev + c_prev
-        c_prev2, s_prev2 = torch.ones_like(vh), torch.zeros_like(vh)
-        acc = torch.zeros_like(vh)
-        pe = torch.zeros((k_cand, 1), dtype=torch.float32, device=vh.device)
-        for m in range(km):
-            if m > 0:
-                c_prev2, c_prev = c_prev, twoc * c_prev - c_prev2
-                s_prev2, s_prev = s_prev, twoc * s_prev - s_prev2
-            cm = torch.sum(c_prev, dim=-1, keepdim=True)  # (K, 1)
-            sm = torch.sum(s_prev, dim=-1, keepdim=True)
-            pc = 2.0 * (g[m] * sm) + pair_c[:, t, m : m + 1]
-            ps = 2.0 * (-(g[m] * cm)) + pair_s[:, t, m : m + 1]
-            acc = acc + pc * c_prev + ps * s_prev
-            if twin_c is not None:
-                cm = cm - twin_c[t, m]
-                sm = sm - twin_s[t, m]
-            pe = pe + (cm * cm + sm * sm) * inv_k2[m]
-        vh = vh + 0.5 * dt * (-acc)
-        pes.append(pe_scale * pe)
-    return torch.cat(pes, dim=1)
+    model = dict(length=length, n0=n0, n_particles=n_particles)
+    c, s = spectral.rollout(x0.to(torch.float32), v0.to(torch.float32), u_c, u_s, dt=dt, rot=rot,
+                            **model)
+    return spectral.field_energy(c, s, tc=twin_c, ts=twin_s, **model)
 
 
 @functools.lru_cache(maxsize=256)
@@ -240,14 +152,14 @@ def _params(k, h, km, n, ka, u_sk, u_sh, x_st, cluster, length, dt, n0, rot, in_
     """The kernel's parameter block, built once per shape and model, after
     checking that at least one cluster of the launch fits the card
     (cudaOccupancyMaxActiveClusters); raises if none does."""
-    g, inv_k2, pe_scale = _constants(km, length, n0, n)
+    _, g, inv_k2, pe_scale = spectral.constants(km, length, n0, n)
     params = _build.SpectralParams(
         k=k, h=h, km=km, n=n, ka=ka, u_sk=u_sk, u_sh=u_sh, x_st=x_st, cluster=cluster,
         dt=dt, half_dt=0.5 * dt, length=length, inv_l=1.0 / length,
         c_ang=2.0 * np.pi / length, c_ang_dt=(2.0 * np.pi / length) * dt, pe_scale=pe_scale,
     )
-    params.g[:km] = [float(v) for v in g]
-    params.inv_k2[:km] = [float(v) for v in inv_k2]
+    params.g[:km] = g
+    params.inv_k2[:km] = inv_k2
     fits = ctypes.c_int(0)
     err = _build.library().pct_spectral_max_clusters(params, int(rot), int(in_global),
                                                      int(corrected), ctypes.byref(fits))

@@ -12,92 +12,36 @@ zero-drive twin (the spectral plan rollout's discretization with the exact
 trig drift). Kernel 1's corrected variant
 (:mod:`.spectral_horizon`) subtracts them from every candidate's mode sums.
 
-The plain version is the op-by-op code the port ran on every device before
-the kernel; on CPU tensors it still runs, and :mod:`...control.mpc` scores
-its op-by-op spectral cost with the harmonic helpers :func:`mode_sums` and
-:func:`mode_eval` defined here. On the card the whole computation is one
-launch on one thread-block cluster (:func:`launch_geometry`); the design note
-at the top of the CUDA source says what bounds it.
+The plain version puts the targets together from the plan model of
+:mod:`..spectral`: the full state's coherent power and the zero-drive
+rollout with the trig drift. CPU tensors take it. On the card the whole
+computation is one launch on one thread-block cluster
+(:func:`launch_geometry`); the design note at the top of the CUDA source
+says what bounds it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import numpy as np
 import torch
 
 from ...utils import trace
 from ...utils.debug import check_kernel
+from .. import spectral
 from . import _build
-from .spectral_horizon import _BLOCK_COEF_BYTES, _REDUCTION_BYTES, Geometry, _constants
 
-__all__ = ["launch_geometry", "mode_eval", "mode_sums", "twin_rollout_plain", "twin_trajectory",
-           "twin_trajectory_plain"]
+__all__ = ["launch_geometry", "twin_trajectory", "twin_trajectory_plain"]
 
 # bytes of the kernel's static shared memory (sizeof(TwinShared) in the
 # source): kernel 1's reduction scratch and block coefficients, and the noise
 # fractions, laid out as the coefficients
-_STATIC_BYTES = _REDUCTION_BYTES + 2 * _BLOCK_COEF_BYTES
+_STATIC_BYTES = _build.REDUCTION_BYTES + 2 * _build.BLOCK_COEF_BYTES
 _STATE_FLOATS = 4  # c1, s1, vh, x per plan particle
 # particles of the larger state per CTA before the cluster doubles
 _PER_CTA = 2048
-
-
-def mode_sums(c1: torch.Tensor, s1: torch.Tensor, n_modes: int):
-    """(..., Km) mode sums c_m = sum_p cos(k_m x_p), s_m = sum_p sin(k_m x_p)
-    by the three-term recurrence from the base harmonic."""
-    twoc = c1 + c1
-    cs, ss = [c1.sum(-1)], [s1.sum(-1)]
-    c_pp, s_pp = torch.ones_like(c1), torch.zeros_like(s1)
-    c_prev, s_prev = c1, s1
-    for _ in range(n_modes - 1):
-        c_pp, c_prev = c_prev, twoc * c_prev - c_pp
-        s_pp, s_prev = s_prev, twoc * s_prev - s_pp
-        cs.append(c_prev.sum(-1))
-        ss.append(s_prev.sum(-1))
-    return torch.stack(cs, dim=-1), torch.stack(ss, dim=-1)
-
-
-def mode_eval(c1: torch.Tensor, s1: torch.Tensor, pc: torch.Tensor, ps: torch.Tensor):
-    """sum_m pc[m] cos(k_m x_p) + ps[m] sin(k_m x_p) per particle."""
-    twoc = c1 + c1
-    acc = pc[..., 0:1] * c1 + ps[..., 0:1] * s1
-    c_pp, s_pp = torch.ones_like(c1), torch.zeros_like(s1)
-    c_prev, s_prev = c1, s1
-    for m in range(1, pc.shape[-1]):
-        c_pp, c_prev = c_prev, twoc * c_prev - c_pp
-        s_pp, s_prev = s_prev, twoc * s_prev - s_pp
-        acc = acc + pc[..., m : m + 1] * c_prev + ps[..., m : m + 1] * s_prev
-    return acc
-
-
-def twin_rollout_plain(x, v, *, n_modes, horizon, length, dt, n0, n_particles):
-    """Zero-drive twin of the spectral plan rollout: the (H, Km) mode-sum
-    trajectory of the state (x, v) under no external drive, with the
-    discretization of the candidate rollouts (merged-half-kick staggered KDK,
-    the same initial un-merged half kick, post-drift sampling) and the exact
-    trig drift, as in the JAX package. Op by op, on any device."""
-    two_pi_over_l = 2.0 * math.pi / length
-    k = two_pi_over_l * torch.arange(1, n_modes + 1, dtype=x.dtype, device=x.device)
-    g = 2.0 * n0 / (n_particles * k)
-
-    t0 = two_pi_over_l * x
-    c1_0, s1_0 = torch.cos(t0), torch.sin(t0)
-    c0, s0 = mode_sums(c1_0, s1_0, n_modes)
-    vh = v + 0.5 * dt * (-mode_eval(c1_0, s1_0, g * s0, -(g * c0)))
-    cs, ss = [], []
-    for _ in range(horizon):
-        x = torch.remainder(x + dt * vh, length)
-        ang = two_pi_over_l * x
-        c1, s1 = torch.cos(ang), torch.sin(ang)
-        c, s = mode_sums(c1, s1, n_modes)
-        vh = vh + 0.5 * dt * (-mode_eval(c1, s1, 2.0 * (g * s), 2.0 * (-(g * c))))
-        cs.append(c)
-        ss.append(s)
-    return torch.stack(cs), torch.stack(ss)  # each (H, Km)
 
 
 def twin_trajectory_plain(full_x, x0, v0, *, n_modes, horizon, length, dt, n0, n_full, n_plan):
@@ -105,20 +49,19 @@ def twin_trajectory_plain(full_x, x0, v0, *, n_modes, horizon, length, dt, n0, n
     the dtype of x0. With coherent power ``sig2_m = max(C_m^2 + S_m^2 - N,
     0)`` of the full state's mode sums, r = n/N and the subsample's noise
     power n (1 - r), ``lambda_m = r^2 sig2_m / (r^2 sig2_m + n (1 - r))``."""
-    t = (2.0 * math.pi / length) * full_x.to(x0.dtype)
-    cf, sf = mode_sums(torch.cos(t), torch.sin(t), n_modes)
-    nf, n = float(n_full), float(n_plan)
-    r = n / nf
-    sig2 = torch.clamp(cf * cf + sf * sf - nf, min=0.0)
+    sig2 = spectral.coherent_power(full_x.to(x0.dtype), n_modes, length)
+    n = float(n_plan)
+    r = n / n_full
     lam = (r * r * sig2) / (r * r * sig2 + n * (1.0 - r))
     rho = 1.0 - lam  # (Km,) noise fraction per mode
-    c0, s0 = twin_rollout_plain(x0, v0, n_modes=n_modes, horizon=horizon, length=length, dt=dt,
-                                n0=n0, n_particles=n_plan)
+    zero = x0.new_zeros(horizon, n_modes)
+    c0, s0 = spectral.rollout(x0, v0, zero, zero, length=length, dt=dt, n0=n0,
+                              n_particles=n_plan, rot=False)
     return rho * c0, rho * s0
 
 
 @functools.lru_cache(maxsize=None)
-def launch_geometry(n_full: int, n_plan: int, cluster: int | None = None) -> Geometry:
+def launch_geometry(n_full: int, n_plan: int, cluster: int | None = None) -> _build.Geometry:
     """One cluster of C CTAs, C the smallest power of two that leaves at
     most 2048 particles of the larger state per CTA, at most MAX_CLUSTER
     (or ``cluster``, which tests force); CTA r holds plan particles
@@ -132,7 +75,7 @@ def launch_geometry(n_full: int, n_plan: int, cluster: int | None = None) -> Geo
             c *= 2
     s = -(-n_plan // c)
     nbytes = 4 * _STATE_FLOATS * s
-    return Geometry(c, s, nbytes if nbytes <= _build.SHARED_BYTES - _STATIC_BYTES else 0)
+    return _build.Geometry(c, s, nbytes if nbytes <= _build.SHARED_BYTES - _STATIC_BYTES else 0)
 
 
 @functools.lru_cache(maxsize=64)
@@ -140,15 +83,15 @@ def _params(n_full, n_plan, km, h, xf_st, x_st, cluster, length, dt, n0, in_glob
     """The kernel's parameter block, built once per shape and model, after
     checking that the launch's cluster fits the card
     (cudaOccupancyMaxActiveClusters); raises if it does not."""
-    g, _, _ = _constants(km, length, n0, n_plan)
+    g = spectral.constants(km, length, n0, n_plan)[1]
     r = n_plan / n_full
-    spectral = _build.SpectralParams(
+    block = _build.SpectralParams(
         k=1, h=h, km=km, n=n_plan, ka=0, u_sk=0, u_sh=0, x_st=x_st, cluster=cluster, dt=dt,
         half_dt=0.5 * dt, length=length, inv_l=1.0 / length, c_ang=2.0 * np.pi / length,
         c_ang_dt=(2.0 * np.pi / length) * dt, pe_scale=0.0,
     )
-    spectral.g[:km] = [float(v) for v in g]
-    params = _build.TwinParams(s=spectral, n_full=n_full, xf_st=xf_st, n_full_f=float(n_full),
+    block.g[:km] = g
+    params = _build.TwinParams(s=block, n_full=n_full, xf_st=xf_st, n_full_f=float(n_full),
                                r2=r * r, noise=n_plan * (1.0 - r))
     fits = ctypes.c_int(0)
     err = _build.library().pct_twin_max_clusters(params, int(in_global), ctypes.byref(fits))

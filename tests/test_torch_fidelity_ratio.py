@@ -1,6 +1,6 @@
 """The fidelity guard's statistic on the CPU (``ops/kernels/fidelity_ratio.py``):
 CPU tensors take the plain version, op by op, bitwise the guard's statistic
-as written before the kernel, and leave the kernel's launch count where it
+as the spectral plan model states it, and leave the kernel's launch count where it
 was (0 in a process without a card); the launch geometry and the kernel's
 parameter block. The kernel itself is held to the plain version in float32
 and float64 on the card (``tests/test_torch_kernels.py``, ``cuda`` marker)."""
@@ -8,6 +8,7 @@ and float64 on the card (``tests/test_torch_kernels.py``, ``cuda`` marker)."""
 import ctypes
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,25 +16,26 @@ from plasma_control_tpu_torch.config import ControlConfig, MPCConfig, SimConfig
 from plasma_control_tpu_torch.control import mpc as port_mpc
 from plasma_control_tpu_torch.ops.kernels import _build
 from plasma_control_tpu_torch.ops.kernels import fidelity_ratio as fr
-from plasma_control_tpu_torch.ops.kernels.twin_trajectory import mode_sums
+from plasma_control_tpu_torch.ops.spectral import mode_sums
 
 L = 50.0
 
 
 def _op_by_op(x, cfg, ctrl, mpc):
-    """The guard's statistic in torch ops, as control/mpc.py computed it on
-    every device before kernel 8."""
+    """The guard's statistic in torch ops: the plan's particle fraction times
+    the coherent energy (n0^2/N) sum_m max(c_m^2 + s_m^2 - N, 0) / k_m^2, over
+    the injected noise n0^2 (1 - frac) sum_m 1/k_m^2, with 1/k_m^2 in
+    float64."""
     n = cfg.n_particles
     km = max(int(mpc.plan_modes), ctrl.max_mode)
-    k = (2.0 * math.pi / cfg.length) * torch.arange(1, km + 1, dtype=x.dtype, device=x.device)
+    k = (2.0 * np.pi / cfg.length) * np.arange(1, km + 1)
     t = (2.0 * math.pi / cfg.length) * x.reshape(-1)
     c, s = mode_sums(torch.cos(t), torch.sin(t), km)
-    modal = (cfg.n0**2 / n) * (c * c + s * s) / (k * k)
-    floor_full = cfg.n0**2 / (k * k)
+    power = torch.clamp(c * c + s * s - n, min=0.0)
+    inv_k2 = torch.tensor(1.0 / (k * k), dtype=x.dtype, device=x.device)
     frac = port_mpc._plan_frac(cfg, mpc)
-    coherent = frac * torch.sum(torch.clamp(modal - floor_full, min=0.0))
-    injected = sum(cfg.n0**2 * (1.0 - frac) / (2.0 * math.pi * m / cfg.length) ** 2
-                   for m in range(1, km + 1))
+    coherent = frac * ((cfg.n0**2 / n) * torch.sum(power * inv_k2))
+    injected = cfg.n0**2 * (1.0 - frac) * sum((1.0 / (k * k)).tolist())
     return coherent / max(injected, 1e-30)
 
 

@@ -953,6 +953,7 @@ def test_twin_targets_on_card_launch_the_kernel(dev, gen, monkeypatch):
     the bar of the CPU's targets against JAX's."""
     from plasma_control_tpu_torch.config import ControlConfig
     from plasma_control_tpu_torch.control.mpc import _plan_model, twin_targets
+    from plasma_control_tpu_torch.ops import spectral
     from plasma_control_tpu_torch.ops.kernels import twin_trajectory as tt
 
     cfg = SimConfig(simcase="two-stream", n_particles=100_000, n_mesh=256, dt=0.1, length=L)
@@ -969,7 +970,8 @@ def test_twin_targets_on_card_launch_the_kernel(dev, gen, monkeypatch):
                 raise AssertionError("a CUDA tensor reached the op-by-op twin")
 
             monkeypatch.setattr(tt, "twin_trajectory_plain", refuse)
-            monkeypatch.setattr(tt, "twin_rollout_plain", refuse)
+            monkeypatch.setattr(spectral, "rollout", refuse)
+            monkeypatch.setattr(spectral, "coherent_power", refuse)
         pst, _, pcfg = _plan_model(s, g, cfg, mpc)
         before = tt.twin_trajectory.launches
         targets[side] = twin_targets(s.x, pst, pcfg, cfg, ctrl, mpc)

@@ -19,6 +19,7 @@ from plasma_control_tpu_torch.config import MPCConfig, SimConfig
 from plasma_control_tpu_torch.control.actuator import make_actuator
 from plasma_control_tpu_torch.control.mpc import candidate_costs
 from plasma_control_tpu_torch.interop import state_from_numpy
+from plasma_control_tpu_torch.ops import spectral
 from plasma_control_tpu_torch.ops.grid import make_grid
 from plasma_control_tpu_torch.ops.kernels import _build
 from plasma_control_tpu_torch.ops.kernels.spectral_horizon import (
@@ -123,17 +124,41 @@ def test_candidate_costs_op_path_matches_jax_xla(mpc_kw):
 
 
 def test_kernel_and_op_paths_agree_on_trig():
-    """Within the port: the kernel wrapper's trig drift and the op-by-op path
-    rank candidates alike (costs within 2e-4; the kernel path rounds its
-    per-mode constants from float64, the op path computes them in float32)."""
+    """On CPU tensors plan_kernel="xla" and "auto" name the JAX package's
+    op-by-op scan, whose drift is trig: both score on the kernel wrapper's
+    plain version with the trig drift, bitwise plan_kernel="fused" with
+    spectral_drift="trig", whatever drift the configuration names."""
     n, ka = 256, 2
     _, (tst, tg, tcfg, tact) = _setup(n, ka)
     cand = 0.3 * torch.randn((10, 5, 2 * ka), generator=torch.Generator().manual_seed(1))
-    kw = dict(horizon=5, n_candidates=10, plan_modes=4, w_terminal=2.0, spectral_drift="trig")
-    fused = candidate_costs(tst, cand, tg, tcfg, MPCConfig(plan_kernel="fused", **kw), tact)
-    ops = candidate_costs(tst, cand, tg, tcfg, MPCConfig(plan_kernel="xla", **kw), tact)
-    np.testing.assert_allclose(fused.numpy(), ops.numpy(), rtol=2e-4, atol=1e-5)
-    assert torch.equal(torch.argsort(fused), torch.argsort(ops))
+    kw = dict(horizon=5, n_candidates=10, plan_modes=4, w_terminal=2.0)
+    fused = candidate_costs(tst, cand, tg, tcfg,
+                            MPCConfig(plan_kernel="fused", spectral_drift="trig", **kw), tact)
+    rot = candidate_costs(tst, cand, tg, tcfg, MPCConfig(plan_kernel="fused", **kw), tact)
+    assert not torch.equal(fused, rot)  # the default drift at dt=0.1, L=50 is rot
+    for plan_kernel in ("xla", "auto"):
+        for drift in (None, "rot"):
+            mpc = MPCConfig(plan_kernel=plan_kernel, spectral_drift=drift, **kw)
+            assert torch.equal(candidate_costs(tst, cand, tg, tcfg, mpc, tact), fused)
+
+
+def test_zero_drive_candidate_reproduces_the_twin():
+    """A zero-drive candidate on the trig drift, scored against the plan
+    state's unshrunk zero-drive twin as its target: its corrected energy
+    vanishes up to float32 rounding, at most 1e-6 of its uncorrected energy
+    (the candidates' (K, N) row sums and the twin's (N,) sums need not round
+    alike)."""
+    n, h, km = 500, 6, 4
+    x, v, _, _ = _inputs(3, n, 1, h, km)
+    x, v = torch.tensor(x), torch.tensor(v)
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n)
+    zero = torch.zeros(h, km)
+    tc, ts = spectral.rollout(x, v, zero, zero, rot=False, **kw)
+    u = torch.zeros(3, h, km)
+    plain = spectral_horizon(x, v, u, u, rot=False, **kw)
+    corrected = spectral_horizon(x, v, u, u, rot=False, twin_c=tc, twin_s=ts, **kw)
+    assert plain.shape == corrected.shape == (3, h) and bool((plain > 0).all())
+    assert bool((corrected.abs() <= 1e-6 * plain).all()), (corrected, plain)
 
 
 def test_plain_horizon_above_the_old_particle_cap_matches_jax_xla():
