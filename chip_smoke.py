@@ -1420,17 +1420,22 @@ def run_million(torch, rows: dict) -> None:
     """Phase 4h: three control steps of the million-particle 32-mode
     controller (MILLION_*: N=1M, K=384 in 24 chunks of 16, H=10, Km=32 over
     16 actuated modes, rot drift), kernel 1's blocked variant with its state
-    in the global scratch, 24 launches per solve; then kernel 1 against its
-    plain version on one chunk of the path's candidates, one chunk's costs
-    on the card against the CPU's plain version, and a three-step
-    uncontrolled push of the end state on kernels 2-3 (the env step at N=1M
-    with deposit_method="pallas"), for kernel 3's launches at this size."""
+    in the global scratch, 24 launches per solve; the same three steps as
+    the benchmark cell runs them (plan_chunk None: one launch per solve on
+    the persistent clusters stream_layout picks for K=384); then kernel 1
+    against its plain version on one chunk of the path's candidates and on
+    the whole solve's K=384 in one launch, that launch bitwise its 24
+    chunks, one chunk's costs on the card against the CPU's plain version,
+    and a three-step uncontrolled push of the end state on kernels 2-3 (the
+    env step at N=1M with deposit_method="pallas"), for kernel 3's launches
+    at this size."""
     import dataclasses
 
     from plasma_control_tpu_torch.control.mpc import candidate_costs, draw_noise, mpc_rollout
     from plasma_control_tpu_torch.models.pic import PlasmaState, init_state
     from plasma_control_tpu_torch.models.rollout import rollout
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
+    from plasma_control_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=MILLION_SIM, mpc=MILLION_MPC,
@@ -1438,12 +1443,27 @@ def run_million(torch, rows: dict) -> None:
     rot = sh.use_rot(cfg.clamped_dt(), cfg.length, mpc.spectral_drift)
     ka, km = ctrl.max_mode, max(mpc.plan_modes, ctrl.max_mode)
     geo = sh.launch_geometry(cfg.n_particles, rot, km)
-    # clusters of 16 CTAs, the state (c1, s1, vh) in a global scratch of one
-    # row per CTA, one fused pass over it per step
+    # 16 virtual ranks, the state (c1, s1, vh) in a global scratch of one row
+    # per CTA of the persistent clusters stream_layout picks from the card's
+    # table, 3 S floats per virtual rank, one fused pass over it per step
+    fits = sh.cluster_fits(torch.cuda.current_device(), rot, False, km > 16)
+    layout = sh.stream_layout(mpc.plan_chunk, geo.cluster, fits)
+    scratch = sh.scratch_shape(mpc.plan_chunk, geo, rot, layout)
     require(rot and geo.cluster == 16 and geo.shared_bytes == 0
-            and sh.scratch_shape(mpc.plan_chunk, geo, rot) == (mpc.plan_chunk * 16, 3 * geo.slice),
-            f"million launch geometry {geo}, scratch {sh.scratch_shape(mpc.plan_chunk, geo, rot)}")
-    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+            and scratch == (layout.clusters * layout.cluster, 3 * geo.slice * 16 // layout.cluster),
+            f"million launch geometry {geo}, {layout}, scratch {scratch}")
+    # the cell's one launch per solve: fewer clusters than candidates, each
+    # walking several, and several virtual ranks per CTA
+    solve = sh.stream_layout(mpc.n_candidates, geo.cluster, fits)
+    solve_scratch = sh.scratch_shape(mpc.n_candidates, geo, rot, solve)
+    require(solve.clusters < mpc.n_candidates and solve.cluster < geo.cluster
+            and solve.clusters == min(mpc.n_candidates, fits[solve.cluster]),
+            f"million solve layout {solve} of {fits}")
+    log(f"[million] clusters the card holds at once by size C, {fits}: a chunk of "
+        f"{mpc.plan_chunk} runs on {layout}, a solve's {mpc.n_candidates} in one launch on "
+        f"{solve}, scratch {solve_scratch}")
+    state0 = init_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = state0
     gen = torch.Generator(device=dev).manual_seed(16)
     chunks = -(-mpc.n_candidates // mpc.plan_chunk)
     fns = _kernel_fns()
@@ -1470,11 +1490,42 @@ def run_million(torch, rows: dict) -> None:
     log(f"[million] ms per control step: {', '.join(f'{t:.4f}' for t in times)} (the first "
         f"includes one-time set-up); PE {pes}")
 
+    # the same steps as the cell runs them: one launch per solve, on the
+    # solve's layout (its clusters and scratch as counted under a recording)
+    mpc_one = dataclasses.replace(mpc, plan_chunk=None)
+    one_state, one_mean, one_times, one_pes = state0, None, [], []
+    one_gen = torch.Generator(device=dev).manual_seed(16)
+    _reset(fns)
+    with trace.recording(4096):
+        for _ in range(MILLION_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mpc_rollout(one_state, grid, cfg, ctrl, mpc_one, act, one_gen, n_steps=1,
+                              mean0=one_mean)
+            torch.cuda.synchronize()
+            one_times.append(1e3 * (time.perf_counter() - t0))
+            one_state, one_mean = out.final_state, out.final_mean
+            one_pes.append(float(out.field_energy[0]))
+        counters = trace.counters()
+    launches = _counts(fns)
+    log(f"[million] {MILLION_STEPS} control steps as the cell runs them (plan_chunk None): "
+        f"launches {launches}; counters {counters}; ms per step "
+        f"{', '.join(f'{t:.4f}' for t in one_times)}; PE {one_pes} (the chunked steps' PE "
+        f"{'equal' if one_pes == pes else 'differ: the input energy is costed chunk by chunk'})")
+    require(launches["spectral_horizon"] == MILLION_STEPS, "one spectral_horizon launch per solve")
+    require(counters.get("plan.stream_clusters") == MILLION_STEPS * solve.clusters
+            and counters.get("plan.kernel_scratch_bytes")
+            == MILLION_STEPS * 4 * solve_scratch[0] * solve_scratch[1],
+            f"million solve counters {counters} against {solve}, scratch {solve_scratch}")
+    require(all(math.isfinite(pe) for pe in one_pes),
+            f"million one-launch PE not finite: {one_pes}")
+
     # kernel 1 at the path's shape: one chunk of one solve's clipped
     # candidates, as candidate_costs hands them over ((K, H, Ka) views,
     # padded to Km in the kernel), against its plain version to rtol 2e-4
-    cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, mpc.horizon, 2 * ka, device=dev),
-                       ctrl.coeff_min, ctrl.coeff_max)[:mpc.plan_chunk]
+    whole = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, mpc.horizon, 2 * ka, device=dev),
+                        ctrl.coeff_min, ctrl.coeff_max)
+    cand = whole[:mpc.plan_chunk]
     kw = dict(length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, n_particles=cfg.n_particles,
               rot=rot, n_modes=km)
     call = lambda: sh.spectral_horizon(state.x, state.v, cand[..., :ka], cand[..., ka:], **kw)  # noqa: E731
@@ -1504,6 +1555,33 @@ def run_million(torch, rows: dict) -> None:
         f"{b['plain_ms']:.4f} ms; bound "
         f"{b['bound_ms']:.6f} ms ({b['bound_by']}, {b['ops']:.4g} operations) = "
         f"{100 * b['bound_ms'] / dev_ms:.2f} % on the device")
+
+    # kernel 1 at the cell's shape: the whole solve's K candidates in one
+    # launch on the solve's layout, against its plain version to rtol 2e-4
+    # and bitwise the 24 chunks, each on its own layout
+    one = lambda: sh.spectral_horizon(state.x, state.v, whole[..., :ka], whole[..., ka:],  # noqa: E731
+                                      **kw)
+    _reset(fns)
+    got = one()
+    require(_counts(fns)["spectral_horizon"] == 1, "the solve in one launch")
+    chunked = torch.cat([sh.spectral_horizon(state.x, state.v, c[..., :ka], c[..., ka:], **kw)
+                         for c in whole.split(mpc.plan_chunk)])
+    t0 = time.perf_counter()
+    ref = sh.spectral_horizon_plain(state.x, state.v, whole[..., :ka], whole[..., ka:], **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(got).all()), "million solve spectral_horizon: non-finite PE")
+    require(torch.equal(got, chunked), "million solve in one launch against its chunks")
+    require(torch.allclose(got, ref, rtol=2e-4, atol=1e-6),
+            "million solve spectral_horizon vs plain")
+    err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+    del ref, chunked
+    solve_ms = time_ms(torch, one, reps=3)
+    log(f"[million] spectral_horizon at the cell's shape (K={whole.shape[0]} in one launch on "
+        f"{solve}): bitwise its {whole.shape[0] // mpc.plan_chunk} chunks; max |err| {err:.3g}, "
+        f"max rel {rel:.3g} against plain (rtol 2e-4); kernel {solve_ms:.4f} ms, plain "
+        f"{plain_s:.1f} s")
 
     # one chunk's costs on the card against the CPU, where the wrapper runs
     # the plain version (plan_kernel="fused": the kernel's rot arithmetic)

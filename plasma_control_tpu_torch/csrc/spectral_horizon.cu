@@ -84,11 +84,22 @@
 // for trig, loaded 4 particles per thread at a time, whose phasor the pass
 // recomputes from x. The particle-to-thread map, the accumulation order,
 // the reductions and each particle's arithmetic are the shared path's, so
-// the energies are bitwise the same as there. The prologue's mode sums at
-// the shared x0 are the same for every candidate and are still summed by
-// every cluster (1 of H+1 passes, no state traffic): sharing them across
-// the clusters of one launch needs either a second device op or a
-// handshake between clusters that need not be resident together.
+// the energies are bitwise the same as there. The global path's launch
+// fills the card with persistent clusters: the 16 CTAs of launch_geometry's
+// cluster become 16 virtual ranks (the same slices, summed in the same
+// order), and the launch runs min(K, A(C)) clusters of C CTAs, C dividing
+// 16 and A(C) the clusters of C that the card holds at once
+// (cudaOccupancyMaxActiveClusters); CTA r of a cluster works through
+// virtual ranks r 16/C .. (r+1) 16/C - 1 in turn, each into its own
+// reduction slot, and each cluster walks the candidates c, c + clusters, ...
+// over its own rows of the scratch. One 16-CTA cluster per candidate filled
+// only 224 of the card's 264 CTA slots (14 clusters) and ran K=384 in 28
+// rounds; ops/kernels/spectral_horizon.py::stream_layout picks C by rounds
+// times slices per CTA (K=384 on an H100: C=2, 132 clusters, 3 rounds of 8
+// slices, 60.3 ms against 69.6). A cluster's first candidate sums the
+// prologue's modes at the shared x0 and keeps the totals in shared memory;
+// every later one forms its prologue coefficients from them and its own
+// drive, so x0's sums run once per cluster, not once per candidate.
 // Sixteen instantiations (drift x placement x energy x Km <= 16 or blocks),
 // rot in this file and trig in spectral_horizon_trig.cu, compiled side by
 // side; registers per instantiation and spills are on chip_smoke.py's
@@ -109,9 +120,9 @@
 
 #include "spectral_horizon.cuh"
 
-int pct_spectral::launch_rot(const Buffers& b, const SpectralParams& p, cudaStream_t stream,
-                             int* max_clusters) {
-  return launch_placement<true>(b, p, stream, max_clusters);
+int pct_spectral::launch_rot(const Buffers& b, const SpectralParams& p, const Shape& s,
+                             cudaStream_t stream, int* max_clusters) {
+  return launch_placement<true>(b, p, s, stream, max_clusters);
 }
 
 extern "C" {
@@ -119,30 +130,37 @@ extern "C" {
 // x0, v0: (n,) at stride x_st; uc, us: the drive, element (k, t, m < ka)
 // at k*u_sk + t*u_sh + m; pe: (k, h). tc, ts: (h, km) targets of the
 // twin-corrected energy, both null for the plain energy. scratch: null keeps
-// each CTA's slice of the state, (3 + !rot) * 4 * ceil(n / cluster) bytes, in
-// shared memory; otherwise a (k * cluster, (2 + rot) * ceil(n / cluster))
-// float buffer that holds it in global memory. km <= 64, cluster <= 16.
+// each CTA's slice of the state, (3 + !rot) * 4 * ceil(n / p.cluster) bytes,
+// in shared memory, on `clusters` = k clusters of `cluster` = p.cluster CTAs;
+// otherwise a (clusters * cluster, (2 + rot) * ceil(n / p.cluster) * p.cluster
+// / cluster) float buffer holds it in global memory, on 1..k persistent
+// clusters of a divisor `cluster` of p.cluster. km <= 64, p.cluster <= 16.
 int pct_spectral_horizon(const float* x0, const float* v0, const float* uc, const float* us,
                          const float* tc, const float* ts, float* pe, float* scratch,
-                         SpectralParams p, int rot, cudaStream_t stream) {
-  if (!valid(p) || (!tc != !ts)) return static_cast<int>(cudaErrorInvalidValue);
+                         SpectralParams p, int rot, int cluster, int clusters,
+                         cudaStream_t stream) {
+  const Shape s{cluster, clusters};
+  if (!valid(p) || (!tc != !ts) || clusters < 1 || !valid_shape(p, s, scratch != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Buffers b{x0, v0, uc, us, tc, ts, pe, scratch};
-  return rot ? pct_spectral::launch_rot(b, p, stream, nullptr)
-             : pct_spectral::launch_trig(b, p, stream, nullptr);
+  return rot ? pct_spectral::launch_rot(b, p, s, stream, nullptr)
+             : pct_spectral::launch_trig(b, p, s, stream, nullptr);
 }
 
-// How many clusters of the launch that pct_spectral_horizon would make with
-// these arguments can be resident on the card at once (cudaOccupancyMax-
-// ActiveClusters); 0 means none fits. Returns a CUDA error code.
-int pct_spectral_max_clusters(SpectralParams p, int rot, int global, int corrected,
+// How many clusters of `cluster` CTAs of the launch that pct_spectral_horizon
+// would make with these arguments can be resident on the card at once
+// (cudaOccupancyMaxActiveClusters); 0 means none fits. Returns a CUDA error
+// code.
+int pct_spectral_max_clusters(SpectralParams p, int rot, int global, int corrected, int cluster,
                               int* max_clusters) {
-  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s{cluster, 0};
+  if (!valid(p) || !valid_shape(p, s, global)) return static_cast<int>(cudaErrorInvalidValue);
   static const float dummy = 0.0f;
   const float* twin = corrected ? &dummy : nullptr;
   const Buffers b{nullptr, nullptr, nullptr, nullptr, twin, twin, nullptr,
                   global ? const_cast<float*>(&dummy) : nullptr};
-  return rot ? pct_spectral::launch_rot(b, p, nullptr, max_clusters)
-             : pct_spectral::launch_trig(b, p, nullptr, max_clusters);
+  return rot ? pct_spectral::launch_rot(b, p, s, nullptr, max_clusters)
+             : pct_spectral::launch_trig(b, p, s, nullptr, max_clusters);
 }
 
 }  // extern "C"

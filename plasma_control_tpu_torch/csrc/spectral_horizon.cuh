@@ -27,24 +27,32 @@ namespace pct_spectral {
 // Device pointers of one launch: x0, v0 (n,) at stride x_st; uc, us: the
 // drive's cosine and sine coefficients, element (k, t, m) at k*u_sk + t*u_sh
 // + m for m < ka; tc, ts (h, km) targets of the corrected variant, else null;
-// pe (k, h); scratch (k * cluster, (3 + !rot) * S) or null (state in shared
-// memory).
+// pe (k, h); scratch: null (the state in shared memory), or one row per CTA
+// of the launch, (2 + rot) * S floats for each of its virtual ranks.
 struct Buffers {
   const float *x0, *v0, *uc, *us, *tc, *ts;
   float *pe, *scratch;
 };
 
+// A launch's clusters: `clusters` clusters of `cluster` CTAs each.
+struct Shape {
+  int cluster, clusters;
+};
+
 // Launch (or, with max_clusters, count how many clusters of the launch fit
 // the card) for one drift: rot in spectral_horizon.cu, trig in
 // spectral_horizon_trig.cu.
-int launch_rot(const Buffers& b, const SpectralParams& p, cudaStream_t stream, int* max_clusters);
-int launch_trig(const Buffers& b, const SpectralParams& p, cudaStream_t stream, int* max_clusters);
+int launch_rot(const Buffers& b, const SpectralParams& p, const Shape& s, cudaStream_t stream,
+               int* max_clusters);
+int launch_trig(const Buffers& b, const SpectralParams& p, const Shape& s, cudaStream_t stream,
+                int* max_clusters);
 
 }  // namespace pct_spectral
 
 namespace {
 
 using pct_spectral::Buffers;
+using pct_spectral::Shape;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -267,46 +275,85 @@ __device__ __forceinline__ float drive(const Own& o, int t, bool pair, const Buf
   return pair ? u[(size_t)min(t + 1, p.h - 1) * p.u_sh] + du : du;
 }
 
+// The thread's sums v summed over its warp into red; a block barrier
+// follows.
+template <int MODES>
+__device__ __forceinline__ void warp_partials(float (&v)[2 * MODES], float (&red)[kWarps][kSums]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float part = warp_reduce_scatter<MODES>(v);
+  if (lane < 2 * MODES) red[warp][lane < MODES ? lane : kBlockModes + lane - MODES] = part;
+}
+
+// After the barrier: the warps' sums added in warp order, the partial sums of
+// the CTA (or of one of its slices), into slot; nothing beyond Km.
+__device__ __forceinline__ void rank_partial(const float (&red)[kWarps][kSums], float* slot,
+                                             const Own& o, const SpectralParams& p) {
+  if (threadIdx.x < kSums && o.m < p.km) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) acc += red[w][threadIdx.x];
+    slot[threadIdx.x] = acc;
+  }
+}
+
+// After the cluster barrier, thread j < 32's total of its mode sum o.src
+// (o.m < Km): the p.cluster ranks' partial sums added in rank order, rank q
+// read from CTA q / per, in the slot of local rank q mod per (local rank j's
+// slot at part + j kSums).
+__device__ __forceinline__ float rank_total(const float* part, const Own& o, int per,
+                                            const SpectralParams& p) {
+  const int c = p.cluster;
+  float sums[kMaxCluster];
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q)
+    if (q < c) sums[q] = load_rank(part + (q % per) * kSums + o.src, q / per);
+  float total = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q)
+    if (q < c) total += sums[q];
+  return total;
+}
+
+// Thread j < 32's field coefficient from its total (o.m < Km):
+// pc_m = scale g_m s_m + du or ps_m = -(scale g_m c_m) + du.
+__device__ __forceinline__ float field_coef(float total, float scale, float du, const Own& o,
+                                            const SpectralParams& p) {
+  const float f = scale * (p.g[o.m] * total);
+  return o.sine_coef ? -f + du : f + du;
+}
+
+// Thread j < 32's total of its mode sum (rank_total) and its field
+// coefficient (field_coef) into *coef; both 0 beyond Km.
+__device__ __forceinline__ float total_and_coef(const float* part, int per, float scale, float du,
+                                                const Own& o, const SpectralParams& p,
+                                                float* coef) {
+  float total = 0.0f;
+  float c = 0.0f;
+  if (o.m < p.km) {
+    total = rank_total(part, o, per, p);
+    c = field_coef(total, scale, du, o, p);
+  }
+  *coef = c;
+  return total;
+}
+
 // The candidate's mode sums from every CTA's partial sums v, added in rank
-// order 0..C-1, then the field coefficients pc_m = scale g_m s_m + du and
-// ps_m = -(scale g_m c_m) + du into coef[0, 32) (0 beyond Km). One block
-// barrier, one cluster barrier, one block barrier. Returns, on thread j < 32,
-// the candidate's total of mode sum o.src (0 beyond Km). Consecutive calls
-// alternate `phase` between the two slots.
+// order 0..C-1, then the field coefficients into coef[0, 32) (0 beyond Km).
+// One block barrier, one cluster barrier, one block barrier. Returns, on
+// thread j < 32, the candidate's total of mode sum o.src (0 beyond Km).
+// Consecutive calls alternate `phase` between the two slots.
 template <int MODES>
 __device__ __forceinline__ float reduce_modes(float (&v)[2 * MODES], int phase, float scale,
                                               float du, const Own& o, const SpectralParams& p,
                                               Reduction& r, float* coef_out) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float part = warp_reduce_scatter<MODES>(v);
-  if (lane < 2 * MODES) r.red[warp][lane < MODES ? lane : kBlockModes + lane - MODES] = part;
+  warp_partials<MODES>(v, r.red);
   __syncthreads();
   float* slot = r.slot[phase & 1];
-  if (threadIdx.x < kSums && o.m < p.km) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) acc += r.red[w][threadIdx.x];
-    slot[threadIdx.x] = acc;
-  }
+  rank_partial(r.red, slot, o, p);
   cluster_sync();
   float total = 0.0f;
-  if (threadIdx.x < kSums) {
-    float coef = 0.0f;
-    if (o.m < p.km) {
-      const int c = p.cluster;
-      float sums[kMaxCluster];
-#pragma unroll
-      for (int q = 0; q < kMaxCluster; ++q)
-        if (q < c) sums[q] = load_rank(slot + o.src, q);
-#pragma unroll
-      for (int q = 0; q < kMaxCluster; ++q)
-        if (q < c) total += sums[q];
-      const float f = scale * (p.g[o.m] * total);
-      coef = o.sine_coef ? -f + du : f + du;
-    }
-    coef_out[threadIdx.x] = coef;
-  }
+  if (threadIdx.x < kSums) total = total_and_coef(slot, 1, scale, du, o, p, coef_out + threadIdx.x);
   __syncthreads();
   return total;
 }
@@ -624,7 +671,7 @@ __host__ __device__ constexpr int stream_floats() {
   return ROT ? 3 : 2;
 }
 
-// One CTA's slice of x0, v0 and of the state in the scratch.
+// One virtual rank's slice of x0, v0 and of the state in the scratch.
 struct Stream {
   const float* __restrict__ x0;
   const float* __restrict__ v0;
@@ -786,114 +833,226 @@ __device__ __forceinline__ BlockIn block_in(int blk, int t, bool prologue, const
   return in;
 }
 
-// One block's sums v through the cluster reduction into its field
-// coefficients coef_out; returns its energy term on thread j < 32.
-template <int MODES>
-__device__ __forceinline__ float block_reduce(float (&v)[2 * MODES], int blk, float scale,
-                                              const BlockIn& in, int& phase,
-                                              const SpectralParams& p, Reduction& r,
-                                              float* coef_out) {
-  const Own o = own_coef(blk);
-  const float total = reduce_modes<MODES>(v, phase++, scale, in.du, o, p, r, coef_out);
-  return energy_term(total, in.target, o, p);
+// ---- persistent clusters over virtual ranks (GLOBAL) ----------------------
+// p.cluster is the number V of virtual ranks: V slices of S = ceil(N / V)
+// particles, whose partial sums are added in rank order q = 0..V-1 exactly
+// as the V CTAs of a cluster of V add theirs. The launch's own (physical)
+// cluster has C CTAs, C dividing V (a launch attribute, read here from
+// %cluster_nctarank); CTA r owns virtual ranks r V/C .. (r + 1) V/C - 1 and
+// works through them one at a time, each with the shared path's
+// particle-to-thread map and order of accumulation, into one slot per
+// virtual rank. The grid holds as many clusters as fit the card (at most
+// K), and each walks the candidates cluster id, + clusters, ... over its own
+// rows of the scratch. The first candidate of a cluster keeps the
+// prologue's totals at the shared x0; every later one forms its prologue
+// coefficients from them and its own drive, with reduce_modes's arithmetic.
+
+__device__ __forceinline__ int cluster_ctas() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return static_cast<int>(r);
 }
 
-// Every block's sums of one step (or of the prologue) reduced in block order
-// into its coefficients: the coefficients of Km <= 16 into pc, ps; blocks
-// beyond the second from one more pass per pair. Returns rank 0 warp 0's
-// energy terms summed over the blocks, per lane.
-template <bool ROT, bool CORRECTED, int MODES, bool PROLOGUE>
-__device__ __forceinline__ float stream_reduce(const Stream& st, const Buffers& b,
-                                               const SpectralParams& p, int cand, int t, int nb,
-                                               const BlockIn& in0, const BlockIn& in1,
-                                               int& phase, Reduction& r, BlockCoefs* coefs,
-                                               float (&va)[MODES <= 16 ? 2 * MODES : kSums],
-                                               float (&vb)[kSums],
-                                               float (&pc)[MODES <= 16 ? MODES : 1],
-                                               float (&ps)[MODES <= 16 ? MODES : 1]) {
+__device__ __forceinline__ int cluster_index() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_count() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// The global path's reduction scratch, beside Reduction's coefficients.
+struct StreamSums {
+  float red[2][2][kWarps][kSums];        // a slice's per-warp sums: [slice parity][block of the pair]
+  float part[2][2][kMaxCluster][kSums];  // its virtual ranks' sums: [phase parity][block][local rank]
+  float x0_total[kMaxBlocks][kSums];     // thread j's totals at x0, one per block of modes
+};
+
+// Virtual rank q's slice of x0, v0 and of the state, held as local rank j of
+// the CTA's scratch row.
+template <bool ROT>
+__device__ __forceinline__ Stream slice_stream(const Buffers& b, const SpectralParams& p, float* row,
+                                               int q, int j, int slice) {
+  const int lo = min(q * slice, p.n);
+  float* state = row + (size_t)j * stream_floats<ROT>() * slice;
+  return Stream{b.x0 + (size_t)lo * p.x_st, b.v0 + (size_t)lo * p.x_st, state,
+                state + slice,   state + 2 * slice,        min(slice, p.n - lo)};
+}
+
+// The end of local rank j's share of a pass: its sums of block blk (va) and,
+// with PAIR, of block blk + 1 (vb) into the phase's slots. One block
+// barrier; the slice parity of red keeps the next slice's warps off the sums
+// still being added.
+template <int MODES, bool PAIR>
+__device__ __forceinline__ void slice_end(float (&va)[2 * MODES], float (&vb)[kSums], int blk,
+                                          int j, int phase, StreamSums& ss,
+                                          const SpectralParams& p) {
+  warp_partials<MODES>(va, ss.red[j & 1][0]);
+  if (PAIR) warp_partials<kBlockModes>(vb, ss.red[j & 1][1]);
+  __syncthreads();
+  rank_partial(ss.red[j & 1][0], ss.part[phase & 1][0][j], own_coef(blk), p);
+  if (PAIR) rank_partial(ss.red[j & 1][1], ss.part[phase & 1][1][j], own_coef(blk + 1), p);
+}
+
+// A phase's reduction after its slices: one cluster barrier; thread j < 32
+// forms block blk's (and with PAIR, if the block exists, block blk + 1's)
+// totals, field coefficients (into r.coef, or with PAIR coefs[blk],
+// coefs[blk + 1]) and energy terms, added to e in block order. The drive and
+// target are loaded here, before the barrier, so that no register holds
+// them through the pass; the PROLOGUE's totals are kept for the cluster's
+// later candidates. One block barrier.
+template <bool CORRECTED, bool PAIR, bool PROLOGUE>
+__device__ __forceinline__ void phase_reduce(int blk, int t, int cand, int phase, int per,
+                                             const Buffers& b, const SpectralParams& p,
+                                             Reduction& r, BlockCoefs* coefs, StreamSums& ss,
+                                             float& e) {
   const float scale = PROLOGUE ? 1.0f : 2.0f;
-  if constexpr (MODES <= kBlockModes) {
-    const float e = block_reduce<MODES>(va, 0, scale, in0, phase, p, r, r.coef);
-    load_coef<MODES>(r, pc, ps);
-    return e;
-  } else {
-    float e = 0.0f;
-    e += block_reduce<kBlockModes>(va, 0, scale, in0, phase, p, r, (*coefs)[0]);
-    e += block_reduce<kBlockModes>(vb, 1, scale, in1, phase, p, r, (*coefs)[1]);
-    for (int blk = 2; blk < nb; blk += 2) {
-      const BlockIn ia = block_in<CORRECTED>(blk, t, PROLOGUE, b, p, cand);
-      const BlockIn ib = block_in<CORRECTED>(blk + 1, t, PROLOGUE, b, p, cand);
-      stream_pair_sums<ROT, PROLOGUE>(st, p, kBlockModes * blk, va, vb);
-      e += block_reduce<kBlockModes>(va, blk, scale, ia, phase, p, r, (*coefs)[blk]);
-      if (blk + 1 < nb)
-        e += block_reduce<kBlockModes>(vb, blk + 1, scale, ib, phase, p, r, (*coefs)[blk + 1]);
-    }
-    return e;
+  const bool two = PAIR && blk + 1 < (p.km + kBlockModes - 1) / kBlockModes;
+  BlockIn ia{0.0f, 0.0f}, ib{0.0f, 0.0f};
+  if (threadIdx.x < kSums) {
+    ia = block_in<CORRECTED>(blk, t, PROLOGUE, b, p, cand);
+    if (two) ib = block_in<CORRECTED>(blk + 1, t, PROLOGUE, b, p, cand);
   }
+  cluster_sync();
+  if (threadIdx.x < kSums) {
+    const Own oa = own_coef(blk);
+    const float ta = total_and_coef(ss.part[phase & 1][0][0], per, scale, ia.du, oa, p,
+                                    (PAIR ? (*coefs)[blk] : r.coef) + threadIdx.x);
+    e += energy_term(ta, ia.target, oa, p);
+    if (PROLOGUE) ss.x0_total[blk][threadIdx.x] = ta;
+    if (two) {
+      const Own ob = own_coef(blk + 1);
+      const float tb = total_and_coef(ss.part[phase & 1][1][0], per, scale, ib.du, ob, p,
+                                      (*coefs)[blk + 1] + threadIdx.x);
+      e += energy_term(tb, ib.target, ob, p);
+      if (PROLOGUE) ss.x0_total[blk + 1][threadIdx.x] = tb;
+    }
+  }
+  __syncthreads();
 }
 
-// The whole horizon with the state in the global scratch. MODES: 8 or 16
-// (Km <= 16: one reduction per step, the coefficients in registers) or 32
-// (Km > 16: blocks 0 and 1 summed in the fused pass, 64 partial sums per
-// thread; blocks 2 and 3 of Km > 32 by one more pass per step over the state
-// the fused pass wrote; Clenshaw over all blocks from shared memory, coefs).
+// The whole horizon of every candidate of the cluster with the state in the
+// global scratch. MODES: 8 or 16 (Km <= 16: one reduction per step, the
+// coefficients in registers) or 32 (Km > 16: blocks 0 and 1 summed in the
+// fused pass, 64 partial sums per thread; blocks 2 and 3 of Km > 32 by one
+// more pass per step over the state the fused pass wrote; Clenshaw over all
+// blocks from shared memory, coefs). A phase (the prologue's or a step's
+// reduction of one pair of blocks) runs the CTA's virtual ranks in turn, then
+// one cluster barrier: the slots alternate from phase to phase, so slot
+// phase mod 2 is next written after every CTA has passed the next phase's
+// barrier, i.e. after it read this phase's slots. The loops are kept rolled:
+// the fused pass holds 64 partial sums and a block's 32 coefficients, and
+// what the loops around it keep live spills there.
 template <bool ROT, bool CORRECTED, int MODES>
 __device__ __forceinline__ void horizon_stream(const Buffers& b, const SpectralParams& p,
-                                               Reduction& r, BlockCoefs* coefs, Ring& ring) {
+                                               Reduction& r, BlockCoefs* coefs, Ring& ring,
+                                               StreamSums& ss) {
   constexpr bool kPairs = MODES > kBlockModes;
-  constexpr int kV = kPairs ? kSums : 2 * MODES;
+  constexpr int kRM = kPairs ? kBlockModes : MODES;  // modes of one reduction
   constexpr int kRegModes = kPairs ? 1 : MODES;
   const int rank = cluster_rank();
-  const int cand = blockIdx.x / p.cluster;
+  const int per = p.cluster / cluster_ctas();
   const int slice = (p.n + p.cluster - 1) / p.cluster;
-  const int lo = min(rank * slice, p.n);
-  float* state = b.scratch + (size_t)blockIdx.x * stream_floats<ROT>() * slice;
-  const Stream st{b.x0 + (size_t)lo * p.x_st, b.v0 + (size_t)lo * p.x_st, state,
-                  state + slice,   state + 2 * slice,        min(slice, p.n - lo)};
+  float* row = b.scratch + (size_t)blockIdx.x * per * stream_floats<ROT>() * slice;
   const int nb = kPairs ? (p.km + kBlockModes - 1) / kBlockModes : 1;
   int phase = 0;
-  float va[kV], vb[kSums];
+  float va[2 * kRM], vb[kSums];
   float pc[kRegModes], ps[kRegModes];
 
-  // ---- prologue: the mode sums at the shared x0 --------------------------
-  BlockIn in0 = block_in<CORRECTED>(0, 0, true, b, p, cand);
-  BlockIn in1 = block_in<CORRECTED>(1, 0, true, b, p, cand);
+#pragma unroll 1
+  for (int cand = cluster_index(); cand < p.k; cand += cluster_count()) {
+    // ---- prologue: the mode sums at the shared x0, once per cluster -------
+    // (the first candidate is told by the special register, not by a flag:
+    // one more live register made the fused pass spill, 8 % slower on an H100)
+    if (cand == cluster_index()) {
+#pragma unroll 1
+      for (int j = 0; j < per; ++j) {
+        const Stream st = slice_stream<ROT>(b, p, row, rank * per + j, j, slice);
 #pragma unroll
-  for (int j = 0; j < kV; ++j) va[j] = 0.0f;
+        for (int u = 0; u < 2 * kRM; ++u) va[u] = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kSums; ++j) vb[j] = 0.0f;
-  for (int i = threadIdx.x; i < st.cnt; i += kThreads) {
-    float c, s;
-    sincosf(p.c_ang * st.x0[(size_t)i * p.x_st], &s, &c);
-    if constexpr (kPairs)
-      add_pair_harmonics(c, s, 0, va, vb);
-    else
-      add_harmonics<MODES>(c, s, va);
-  }
-  stream_reduce<ROT, CORRECTED, MODES, true>(st, b, p, cand, 0, nb, in0, in1, phase, r, coefs, va,
-                                             vb, pc, ps);
+        for (int u = 0; u < kSums; ++u) vb[u] = 0.0f;
+        for (int i = threadIdx.x; i < st.cnt; i += kThreads) {
+          float c, s;
+          sincosf(p.c_ang * st.x0[(size_t)i * p.x_st], &s, &c);
+          if constexpr (kPairs)
+            add_pair_harmonics(c, s, 0, va, vb);
+          else
+            add_harmonics<MODES>(c, s, va);
+        }
+        slice_end<kRM, kPairs>(va, vb, 0, j, phase, ss, p);
+      }
+      float e = 0.0f;
+      phase_reduce<CORRECTED, kPairs, true>(0, 0, cand, phase++, per, b, p, r, coefs, ss, e);
+      if constexpr (kPairs) {
+#pragma unroll 1
+        for (int blk = 2; blk < nb; blk += 2) {
+#pragma unroll 1
+          for (int j = 0; j < per; ++j) {
+            const Stream st = slice_stream<ROT>(b, p, row, rank * per + j, j, slice);
+            stream_pair_sums<ROT, true>(st, p, kBlockModes * blk, va, vb);
+            slice_end<kBlockModes, true>(va, vb, blk, j, phase, ss, p);
+          }
+          phase_reduce<CORRECTED, true, true>(blk, 0, cand, phase++, per, b, p, r, coefs, ss, e);
+        }
+      }
+    } else {
+      if (threadIdx.x < kSums) {
+#pragma unroll 1
+        for (int blk = 0; blk < nb; ++blk) {
+          const Own o = own_coef(blk);
+          (kPairs ? (*coefs)[blk] : r.coef)[threadIdx.x] =
+              o.m < p.km ? field_coef(ss.x0_total[blk][threadIdx.x], 1.0f,
+                                      drive(o, 0, false, b, p, cand), o, p)
+                         : 0.0f;
+        }
+      }
+      __syncthreads();
+    }
+    if constexpr (!kPairs) load_coef<MODES>(r, pc, ps);
 
-  // ---- H steps, one pass over the state each ------------------------------
-  for (int t = 0; t < p.h; ++t) {
-    // the step's drive and targets, loaded while the particles stream
-    in0 = block_in<CORRECTED>(0, t, false, b, p, cand);
-    in1 = block_in<CORRECTED>(1, t, false, b, p, cand);
+    // ---- H steps, one pass over the state each ----------------------------
+#pragma unroll 1
+    for (int t = 0; t < p.h; ++t) {
+      const bool store = t + 1 < p.h || nb > 2;
+#pragma unroll 1
+      for (int j = 0; j < per; ++j) {
+        const Stream st = slice_stream<ROT>(b, p, row, rank * per + j, j, slice);
 #pragma unroll
-    for (int j = 0; j < kV; ++j) va[j] = 0.0f;
+        for (int u = 0; u < 2 * kRM; ++u) va[u] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kSums; ++j) vb[j] = 0.0f;
-    const bool store = t + 1 < p.h || nb > 2;
-    if (t == 0)
-      stream_direct<ROT, true, MODES>(st, p, store, pc, ps, coefs, nb, va, vb);
-    else if constexpr (ROT)
-      stream_ring<MODES>(ring, st, p, store, pc, ps, coefs, nb, va, vb);
-    else
-      stream_direct<false, false, MODES>(st, p, store, pc, ps, coefs, nb, va, vb);
-    const float e = stream_reduce<ROT, CORRECTED, MODES, false>(st, b, p, cand, t, nb, in0, in1,
-                                                                phase, r, coefs, va, vb, pc, ps);
-    if (rank == 0 && threadIdx.x < 32) write_energy(e, p, b.pe + (size_t)cand * p.h + t);
+        for (int u = 0; u < kSums; ++u) vb[u] = 0.0f;
+        if (t == 0)
+          stream_direct<ROT, true, MODES>(st, p, store, pc, ps, coefs, nb, va, vb);
+        else if constexpr (ROT)
+          stream_ring<MODES>(ring, st, p, store, pc, ps, coefs, nb, va, vb);
+        else
+          stream_direct<false, false, MODES>(st, p, store, pc, ps, coefs, nb, va, vb);
+        slice_end<kRM, kPairs>(va, vb, 0, j, phase, ss, p);
+      }
+      float e = 0.0f;
+      phase_reduce<CORRECTED, kPairs, false>(0, t, cand, phase++, per, b, p, r, coefs, ss, e);
+      if constexpr (kPairs) {
+#pragma unroll 1
+        for (int blk = 2; blk < nb; blk += 2) {
+#pragma unroll 1
+          for (int j = 0; j < per; ++j) {
+            const Stream st = slice_stream<ROT>(b, p, row, rank * per + j, j, slice);
+            stream_pair_sums<ROT, false>(st, p, kBlockModes * blk, va, vb);
+            slice_end<kBlockModes, true>(va, vb, blk, j, phase, ss, p);
+          }
+          phase_reduce<CORRECTED, true, false>(blk, t, cand, phase++, per, b, p, r, coefs, ss, e);
+        }
+      }
+      if constexpr (!kPairs) load_coef<MODES>(r, pc, ps);
+      if (rank == 0 && threadIdx.x < 32) write_energy(e, p, b.pe + (size_t)cand * p.h + t);
+    }
   }
-  // no CTA leaves while another may still read its slot
+  // no CTA leaves while another may still read its slots
   cluster_sync();
 }
 
@@ -906,11 +1065,12 @@ spectral_horizon_kernel(const Buffers b, const SpectralParams p) {
   __shared__ __align__(16) Reduction r;
   extern __shared__ float smem_state[];
   if constexpr (GLOBAL) {
+    __shared__ __align__(16) StreamSums ss;
     Ring& ring = *reinterpret_cast<Ring*>(smem_state);
     if (p.km <= 8)
-      horizon_stream<ROT, CORRECTED, 8>(b, p, r, nullptr, ring);
+      horizon_stream<ROT, CORRECTED, 8>(b, p, r, nullptr, ring, ss);
     else
-      horizon_stream<ROT, CORRECTED, kBlockModes>(b, p, r, nullptr, ring);
+      horizon_stream<ROT, CORRECTED, kBlockModes>(b, p, r, nullptr, ring, ss);
   } else {
     if (p.km <= 8)
       horizon<ROT, CORRECTED, 8>(b, p, r, smem_state);
@@ -927,11 +1087,13 @@ spectral_horizon_blocks_kernel(const Buffers b, const SpectralParams p) {
   __shared__ __align__(16) Reduction r;
   __shared__ __align__(16) BlockCoefs coefs;
   extern __shared__ float smem_state[];
-  if constexpr (GLOBAL)
+  if constexpr (GLOBAL) {
+    __shared__ __align__(16) StreamSums ss;
     horizon_stream<ROT, CORRECTED, 2 * kBlockModes>(b, p, r, &coefs,
-                                                    *reinterpret_cast<Ring*>(smem_state));
-  else
+                                                    *reinterpret_cast<Ring*>(smem_state), ss);
+  } else {
     horizon_blocks<ROT, CORRECTED>(b, p, r, coefs, smem_state);
+  }
 }
 
 template <bool ROT, bool GLOBAL, bool CORRECTED, bool BLOCKS>
@@ -943,10 +1105,12 @@ auto kernel_of() {
 }
 
 // Static shared memory of each kernel, beside which the state's dynamic
-// share must fit (ops/kernels/spectral_horizon.py mirrors both sizes).
-template <bool BLOCKS>
+// share must fit (ops/kernels/spectral_horizon.py mirrors both sizes of the
+// shared path), and with the state in the global scratch its StreamSums.
+template <bool GLOBAL, bool BLOCKS>
 constexpr int static_bytes() {
-  return (int)sizeof(Reduction) + (BLOCKS ? (int)sizeof(BlockCoefs) : 0);
+  return (int)sizeof(Reduction) + (BLOCKS ? (int)sizeof(BlockCoefs) : 0) +
+         (GLOBAL ? (int)sizeof(StreamSums) : 0);
 }
 
 template <bool ROT, bool GLOBAL, bool CORRECTED, bool BLOCKS>
@@ -957,7 +1121,7 @@ cudaError_t configure() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || done_for == dev) return err;
   auto* kernel = kernel_of<ROT, GLOBAL, CORRECTED, BLOCKS>();
-  const int max_dynamic = 232448 - static_bytes<BLOCKS>();
+  const int max_dynamic = 232448 - static_bytes<GLOBAL, BLOCKS>();
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dynamic);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -974,17 +1138,21 @@ inline size_t state_bytes(const SpectralParams& p, bool rot, bool global) {
   return (rot ? 3 : 4) * sizeof(float) * slice;
 }
 
+// A launch of `clusters` clusters of `cluster` CTAs: with the state in shared
+// memory K clusters of p.cluster CTAs, with it in the global scratch up to K
+// persistent clusters of a divisor of p.cluster (the virtual ranks).
 template <bool ROT, bool GLOBAL, bool CORRECTED, bool BLOCKS>
-int launch(const Buffers& b, const SpectralParams& p, cudaStream_t stream, int* max_clusters) {
+int launch(const Buffers& b, const SpectralParams& p, const Shape& s, cudaStream_t stream,
+           int* max_clusters) {
   cudaError_t err = configure<ROT, GLOBAL, CORRECTED, BLOCKS>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.x = s.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(p.k * p.cluster);
+  cfg.gridDim = dim3(s.clusters * s.cluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = state_bytes(p, ROT, GLOBAL);
   cfg.stream = stream;
@@ -992,7 +1160,7 @@ int launch(const Buffers& b, const SpectralParams& p, cudaStream_t stream, int* 
   cfg.numAttrs = 1;
   auto* kernel = kernel_of<ROT, GLOBAL, CORRECTED, BLOCKS>();
   if (max_clusters) {
-    cfg.gridDim = dim3(p.cluster);
+    cfg.gridDim = dim3(s.cluster);
     return static_cast<int>(cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg));
   }
   err = cudaLaunchKernelEx(&cfg, kernel, b, p);
@@ -1001,26 +1169,37 @@ int launch(const Buffers& b, const SpectralParams& p, cudaStream_t stream, int* 
 }
 
 template <bool ROT, bool GLOBAL, bool CORRECTED>
-int launch_modes(const Buffers& b, const SpectralParams& p, cudaStream_t stream, int* fit) {
-  return p.km > kBlockModes ? launch<ROT, GLOBAL, CORRECTED, true>(b, p, stream, fit)
-                            : launch<ROT, GLOBAL, CORRECTED, false>(b, p, stream, fit);
+int launch_modes(const Buffers& b, const SpectralParams& p, const Shape& s, cudaStream_t stream,
+                 int* fit) {
+  return p.km > kBlockModes ? launch<ROT, GLOBAL, CORRECTED, true>(b, p, s, stream, fit)
+                            : launch<ROT, GLOBAL, CORRECTED, false>(b, p, s, stream, fit);
 }
 
 template <bool ROT, bool GLOBAL>
-int launch_variant(const Buffers& b, const SpectralParams& p, cudaStream_t stream, int* fit) {
-  return b.tc ? launch_modes<ROT, GLOBAL, true>(b, p, stream, fit)
-              : launch_modes<ROT, GLOBAL, false>(b, p, stream, fit);
+int launch_variant(const Buffers& b, const SpectralParams& p, const Shape& s, cudaStream_t stream,
+                   int* fit) {
+  return b.tc ? launch_modes<ROT, GLOBAL, true>(b, p, s, stream, fit)
+              : launch_modes<ROT, GLOBAL, false>(b, p, s, stream, fit);
 }
 
 template <bool ROT>
-int launch_placement(const Buffers& b, const SpectralParams& p, cudaStream_t stream, int* fit) {
-  return b.scratch ? launch_variant<ROT, true>(b, p, stream, fit)
-                   : launch_variant<ROT, false>(b, p, stream, fit);
+int launch_placement(const Buffers& b, const SpectralParams& p, const Shape& s,
+                     cudaStream_t stream, int* fit) {
+  return b.scratch ? launch_variant<ROT, true>(b, p, s, stream, fit)
+                   : launch_variant<ROT, false>(b, p, s, stream, fit);
 }
 
 inline bool valid(const SpectralParams& p) {
   return p.km >= 1 && p.km <= kMaxModes && p.ka >= 0 && p.ka <= p.km && p.k >= 1 && p.h >= 1 &&
          p.n >= 1 && p.x_st >= 1 && p.cluster >= 1 && p.cluster <= kMaxCluster;
+}
+
+// A launch shape for these parameters: in shared memory exactly K clusters of
+// p.cluster CTAs; in the global scratch a divisor of p.cluster and 1..K
+// clusters (at most K for an occupancy query, which takes one cluster).
+inline bool valid_shape(const SpectralParams& p, const Shape& s, bool global) {
+  if (!global) return s.cluster == p.cluster && (s.clusters == p.k || s.clusters == 0);
+  return s.cluster >= 1 && p.cluster % s.cluster == 0 && s.clusters >= 0 && s.clusters <= p.k;
 }
 
 }  // namespace

@@ -3,7 +3,7 @@
 
 #include "spectral_horizon.cuh"
 
-int pct_spectral::launch_trig(const Buffers& b, const SpectralParams& p, cudaStream_t stream,
-                              int* max_clusters) {
-  return launch_placement<false>(b, p, stream, max_clusters);
+int pct_spectral::launch_trig(const Buffers& b, const SpectralParams& p, const Shape& s,
+                              cudaStream_t stream, int* max_clusters) {
+  return launch_placement<false>(b, p, s, stream, max_clusters);
 }

@@ -151,10 +151,10 @@ _SIGNATURES = {
     "pct_cic_deposit": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P],
     # e, x, out, b, n, m, e_stride, length, inv_dx, kind, stream
     "pct_cic_gather": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
-    # x0, v0, uc, us, tc, ts, pe, scratch, params, rot, stream
-    "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _P],
-    # params, rot, global, corrected, out max_clusters
-    "pct_spectral_max_clusters": [SpectralParams, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    # x0, v0, uc, us, tc, ts, pe, scratch, params, rot, cluster, clusters, stream
+    "pct_spectral_horizon": [_P, _P, _P, _P, _P, _P, _P, _P, SpectralParams, _I, _I, _I, _P],
+    # params, rot, global, corrected, cluster, out max_clusters
+    "pct_spectral_max_clusters": [SpectralParams, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     # xf, x0, v0, tc, ts, scratch, params, stream
     "pct_twin_trajectory": [_P, _P, _P, _P, _P, _P, TwinParams, _P],
     # params, global, out max_clusters

@@ -26,19 +26,24 @@ holding a slice of the particle state in shared memory;
 :func:`launch_geometry` chooses C from N and the drift. Where even the largest
 cluster cannot hold the state, it lives in a global scratch that the wrapper
 allocates (:func:`scratch_shape`), so every N runs; there the kernel makes
-one pass over the state per step. Km up to 16 runs a compile-time 8 or 16
-modes; Km from 17 to 64 (``_build.MAX_MODES``) runs the kernel's blocked
-variant, 16 modes at a time. While :mod:`...utils.debug`'s NaN checks are
-on, the wrapper checks each launch's inputs and output. Under a
+one pass over the state per step, on persistent clusters that fill the card
+(:func:`stream_layout`), each walking several candidates. Km up to 16 runs
+a compile-time 8 or 16 modes; Km from 17 to 64 (``_build.MAX_MODES``) runs
+the kernel's blocked variant, 16 modes at a time. While
+:mod:`...utils.debug`'s NaN checks are on, the wrapper checks each launch's
+inputs and output. Under a
 :mod:`...utils.trace` recording it counts each launch of the blocked variant
-(``plan.blocks_kernel``) and adds the bytes of each launch's global scratch
-(``plan.kernel_scratch_bytes``).
+(``plan.blocks_kernel``), adds the bytes of each launch's global scratch
+(``plan.kernel_scratch_bytes``) and the clusters each such launch runs
+(``plan.stream_clusters``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections.abc import Mapping
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,12 +57,15 @@ from ._build import Geometry
 
 __all__ = [
     "Geometry",
+    "StreamLayout",
+    "cluster_fits",
     "launch_geometry",
     "scratch_shape",
     "spectral_horizon",
     "spectral_horizon_plain",
     "spectral_horizon_supported",
     "state_in_shared",
+    "stream_layout",
     "use_rot",
 ]
 
@@ -66,6 +74,17 @@ __all__ = [
 # cluster fastest at every main-path shape (PERF.md §6)
 _SLICE_BYTES = 64 * 1024
 _V_SAFE = 25.0  # velocity bound of the rot drift's static angle gate
+_CLUSTERS = (1, 2, 4, 8, 16)  # the physical cluster sizes of the global-scratch path
+
+
+class StreamLayout(NamedTuple):
+    """The physical launch of the global-scratch path: ``clusters`` clusters
+    of ``cluster`` CTAs, ``cluster`` dividing the geometry's cluster (its
+    virtual ranks, whose slices a CTA works through in turn, geometry.cluster
+    / cluster of them); cluster c runs candidates c, c + clusters, ..."""
+
+    cluster: int
+    clusters: int
 
 
 def use_rot(dt: float, length: float, mode: str | None = None) -> bool:
@@ -123,13 +142,45 @@ def state_in_shared(n_particles: int, rot: bool, km: int = 1) -> bool:
     return launch_geometry(n_particles, rot, km).shared_bytes > 0
 
 
-def scratch_shape(k: int, geometry: Geometry, rot: bool) -> tuple[int, int] | None:
-    """The global scratch of a launch of K candidates at ``geometry``: one
-    row per CTA of ``_state_floats(rot, True) * slice`` floats; None when
-    the state lives in shared memory."""
+def stream_layout(k: int, ranks: int, fits: Mapping[int, int]) -> StreamLayout:
+    """The global-scratch path's physical clusters for K candidates over
+    ``ranks`` virtual ranks (the geometry's cluster), given ``fits``, the
+    clusters of C CTAs the card holds at once (A(C), C in 1, 2, 4, 8, 16):
+    of the C that divide ``ranks`` and fit, the one that minimises rounds
+    times slices per CTA, ceil(K / min(K, A(C))) * ranks / C; min(K, A(C))
+    clusters. On a tie the larger C, of more rounds: CTAs launched together
+    share their SMs two by two whatever their number, so a round of fewer
+    clusters runs no faster, while the candidates of a partly empty last
+    round run on SMs whose other CTA has finished (an H100, N=1M, K=16: C=16
+    on 14 clusters, 2 rounds, 3.9 ms; C=8 on 16 clusters, 1 round of 2
+    slices, 5.2 ms)."""
+    best = None
+    for c in _CLUSTERS:
+        if ranks % c or fits.get(c, 0) < 1:
+            continue
+        clusters = min(k, fits[c])
+        rounds = -(-k // clusters)
+        key = (rounds * (ranks // c), -rounds)
+        if best is None or key < best[0]:
+            best = key, StreamLayout(c, clusters)
+    if best is None:
+        raise RuntimeError(f"spectral_horizon: no cluster dividing {ranks} CTAs fits the card")
+    return best[1]
+
+
+def scratch_shape(k: int, geometry: Geometry, rot: bool,
+                  layout: StreamLayout | None = None) -> tuple[int, int] | None:
+    """The global scratch of a launch of K candidates at ``geometry`` on
+    ``layout``'s clusters (None: one cluster of geometry.cluster CTAs per
+    candidate): one row per CTA, ``_state_floats(rot, True) * slice``
+    floats for each of its virtual ranks; None when the state lives in
+    shared memory."""
     if geometry.shared_bytes:
         return None
-    return k * geometry.cluster, _state_floats(rot, in_global=True) * geometry.slice
+    layout = StreamLayout(geometry.cluster, k) if layout is None else layout
+    per = geometry.cluster // layout.cluster
+    return (layout.clusters * layout.cluster,
+            _state_floats(rot, in_global=True) * per * geometry.slice)
 
 
 def spectral_horizon_plain(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot,
@@ -146,12 +197,36 @@ def spectral_horizon_plain(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     return spectral.field_energy(c, s, tc=twin_c, ts=twin_s, **model)
 
 
+def _max_clusters(params, rot, in_global, corrected, cluster) -> int:
+    """Clusters of ``cluster`` CTAs of the launch the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    fits = ctypes.c_int(0)
+    err = _build.library().pct_spectral_max_clusters(params, int(rot), int(in_global),
+                                                     int(corrected), cluster, ctypes.byref(fits))
+    _build.check(err, "spectral_horizon")
+    return fits.value
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_fits(device: int, rot: bool, corrected: bool, blocks: bool) -> dict[int, int]:
+    """A(C) of the global-scratch path on CUDA device ``device`` (an index)
+    for each C in 1, 2, 4, 8, 16, the table :func:`stream_layout` takes: on
+    one card its occupancy depends only on the drift, the energy and whether
+    Km > 16."""
+    km = _build.MAX_MODES if blocks else _build.BLOCK_MODES
+    params = _build.SpectralParams(k=1, h=1, km=km, n=1, ka=0, u_sk=0, u_sh=0, x_st=1,
+                                   cluster=_build.MAX_CLUSTER)
+    with torch.cuda.device(device):
+        return {c: _max_clusters(params, rot, True, corrected, c) for c in _CLUSTERS}
+
+
 @functools.lru_cache(maxsize=256)
 def _params(k, h, km, n, ka, u_sk, u_sh, x_st, cluster, length, dt, n0, rot, in_global,
             corrected):
-    """The kernel's parameter block, built once per shape and model, after
-    checking that at least one cluster of the launch fits the card
-    (cudaOccupancyMaxActiveClusters); raises if none does."""
+    """The kernel's parameter block, built once per shape and model; with the
+    state in shared memory after checking that at least one cluster of the
+    launch fits the card (cudaOccupancyMaxActiveClusters; the global path's
+    clusters are :func:`stream_layout`'s); raises if none does."""
     _, g, inv_k2, pe_scale = spectral.constants(km, length, n0, n)
     params = _build.SpectralParams(
         k=k, h=h, km=km, n=n, ka=ka, u_sk=u_sk, u_sh=u_sh, x_st=x_st, cluster=cluster,
@@ -160,20 +235,18 @@ def _params(k, h, km, n, ka, u_sk, u_sh, x_st, cluster, length, dt, n0, rot, in_
     )
     params.g[:km] = g
     params.inv_k2[:km] = inv_k2
-    fits = ctypes.c_int(0)
-    err = _build.library().pct_spectral_max_clusters(params, int(rot), int(in_global),
-                                                     int(corrected), ctypes.byref(fits))
-    _build.check(err, "spectral_horizon")
-    if fits.value < 1:
+    if not in_global and _max_clusters(params, rot, False, corrected, cluster) < 1:
         raise RuntimeError(f"spectral_horizon: no cluster of {cluster} CTAs fits the card "
                            f"(N={n}, {'rot' if rot else 'trig'})")
     return params
 
 
 def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot, twin_c,
-                           twin_s, n_modes, geometry=None):
+                           twin_s, n_modes, geometry=None, layout=None):
     """The kernel launch. ``geometry`` overrides :func:`launch_geometry`
-    (tests force a cluster size or the global scratch with it)."""
+    (tests force a cluster size or the global scratch with it), ``layout``
+    the global-scratch path's :func:`stream_layout` (tests and the cluster
+    sweep force its clusters with it)."""
     k_cand, horizon, ka = u_c.shape
     km = ka if n_modes is None else n_modes
     if not spectral_horizon_supported(n_particles, km) or ka > km:
@@ -204,8 +277,13 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
     params = _params(k_cand, horizon, km, n_particles, ka, u_c.stride(0), u_c.stride(1),
                      x0.stride(0), geo.cluster, float(length), float(dt), float(n0), bool(rot),
                      in_global, corrected)
+    if not in_global:
+        layout = StreamLayout(geo.cluster, k_cand)
+    elif layout is None:
+        layout = stream_layout(k_cand, geo.cluster, cluster_fits(
+            x0.get_device(), bool(rot), corrected, km > _build.BLOCK_MODES))
     pe = torch.empty((k_cand, horizon), dtype=torch.float32, device=x0.device)
-    shape = scratch_shape(k_cand, geo, rot)
+    shape = scratch_shape(k_cand, geo, rot, layout)
     scratch = None if shape is None else torch.empty(shape, dtype=torch.float32,
                                                      device=x0.device)
     _build.call(
@@ -213,6 +291,7 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
         x0.data_ptr(), v0.data_ptr(), u_c.data_ptr(), u_s.data_ptr(),
         twin_c.data_ptr() if corrected else None, twin_s.data_ptr() if corrected else None,
         pe.data_ptr(), None if scratch is None else scratch.data_ptr(), params, int(rot),
+        layout.cluster, layout.clusters,
     )
     spectral_horizon.launches += 1
     if corrected:
@@ -221,6 +300,7 @@ def _spectral_horizon_cuda(x0, v0, u_c, u_s, *, length, dt, n0, n_particles, rot
         trace.count("plan.blocks_kernel")
     if shape is not None:
         trace.count("plan.kernel_scratch_bytes", 4 * shape[0] * shape[1])
+        trace.count("plan.stream_clusters", layout.clusters)
     check_kernel("spectral_horizon", tensors, (pe,))
     return pe
 

@@ -459,14 +459,21 @@ def test_spectral_horizon_global_scratch_is_the_shared_path(dev, gen, cluster, k
 
 def test_million_solve_in_one_launch_is_its_chunks(dev, gen):
     """The million-particle controller's solve as its benchmark cell runs it
-    (N=1M, K=384, H=10, Km=32 over Ka=16, rot): one launch over a global
-    scratch of 6144 rows (384 clusters of 16 CTAs) of 3 x 62500 floats gives
-    bitwise the energies of the source's 24 chunks of 16 candidates, each
-    candidate on its own cluster."""
+    (N=1M, K=384, H=10, Km=32 over Ka=16, rot): one launch on the persistent
+    clusters stream_layout picks for K=384 (fewer than 384, a scratch below
+    one cluster of 16 CTAs per candidate's 6144 rows of 3 x 62500 floats)
+    gives bitwise the energies of the source's 24 chunks of 16 candidates,
+    each on the clusters it picks for K=16: the same 16 virtual ranks, added
+    in the same order."""
     n, k, h, km, ka, dt = 1_000_000, 384, 10, 32, 16, 2.0 / (1_000_000 / L) ** 0.5
     geo = sh.launch_geometry(n, True, km)
     assert geo == sh.Geometry(16, 62_500, 0)
     assert sh.scratch_shape(k, geo, True) == (6144, 187_500)
+    fits = sh.cluster_fits(torch.cuda.current_device(), True, False, True)
+    layout = sh.stream_layout(k, geo.cluster, fits)
+    rows, width = sh.scratch_shape(k, geo, True, layout)
+    assert layout.clusters < k and rows * width < 6144 * 187_500
+    assert layout.clusters == min(k, fits[layout.cluster]) and 16 % layout.cluster == 0
     x0 = torch.rand(n, generator=gen, device=dev) * L
     v0 = torch.randn(n, generator=gen, device=dev) + 3.0 * torch.sign(torch.randn(
         n, generator=gen, device=dev))
@@ -480,6 +487,62 @@ def test_million_solve_in_one_launch_is_its_chunks(dev, gen):
     assert sh.spectral_horizon.launches == before + 25
     assert torch.isfinite(whole).all()
     assert torch.equal(whole, chunks)
+
+
+def _stream_inputs(gen, dev, n, k, h, km):
+    x0 = torch.rand(n, generator=gen, device=dev) * L
+    v0 = torch.randn(n, generator=gen, device=dev) + 3.0 * torch.sign(torch.randn(
+        n, generator=gen, device=dev))
+    u_c, u_s = (0.3 * torch.randn((k, h, km), generator=gen, device=dev) for _ in range(2))
+    tc, ts = (n ** 0.5 * torch.randn((h, km), generator=gen, device=dev) for _ in range(2))
+    return x0, v0, u_c, u_s, tc, ts
+
+
+def _assert_stream_layouts_equal(x0, v0, u_c, u_s, kw, clusters):
+    """Every physical cluster C of the 16 virtual ranks, on ``clusters``
+    persistent clusters (fewer than K: each walks several candidates, the
+    first summing x0's modes for the rest), and on the clusters
+    stream_layout picks, against C=16 with one cluster per candidate:
+    bitwise equal energies."""
+    k, n = u_c.shape[0], kw["n_particles"]
+    geo = sh.launch_geometry(n, kw["rot"], u_c.shape[-1])
+    assert geo.cluster == 16 and geo.shared_bytes == 0 and clusters < k
+    ref = sh._spectral_horizon_cuda(x0, v0, u_c, u_s, layout=sh.StreamLayout(16, k), **kw)
+    assert torch.isfinite(ref).all()
+    for c in (1, 2, 4, 8, 16):
+        got = sh._spectral_horizon_cuda(x0, v0, u_c, u_s, layout=sh.StreamLayout(c, clusters),
+                                        **kw)
+        assert torch.equal(got, ref), f"C={c}, {clusters} clusters"
+    assert torch.equal(sh._spectral_horizon_cuda(x0, v0, u_c, u_s, **kw), ref)
+
+
+@pytest.mark.parametrize("corrected", [False, True], ids=["plain", "corrected"])
+@pytest.mark.parametrize("rot", [True, False], ids=["rot", "trig"])
+@pytest.mark.parametrize("km", [5, 8, 16, 20, 32, 40, 64])
+def test_stream_clusters_are_one_cluster_per_candidate(dev, gen, km, rot, corrected):
+    """The global path at N=320000 (16 virtual ranks of 20000 particles),
+    K=32, H=10, at every instantiation: Km <= 8 and <= 16 (one reduction per
+    step), 17-32 (two blocks in the fused pass) and 33-64 (one more pass per
+    step for blocks 2 and 3, whose later candidates' prologue coefficients
+    come from x0's kept totals): persistent clusters of every C on 5
+    clusters, each walking several candidates, and the chosen ones, give the
+    energies of one 16-CTA cluster per candidate bit for bit."""
+    n, k, h = 320_000, 32, 10
+    x0, v0, u_c, u_s, tc, ts = _stream_inputs(gen, dev, n, k, h, km)
+    kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=rot, n_modes=None,
+              twin_c=tc if corrected else None, twin_s=ts if corrected else None)
+    _assert_stream_layouts_equal(x0, v0, u_c, u_s, kw, clusters=5)
+
+
+def test_million_stream_clusters_are_one_cluster_per_candidate(dev, gen):
+    """The million path (N=1M, K=24, H=10, Km=32, rot, the cell's dt):
+    every C on 5 persistent clusters, and the chosen ones, bitwise one
+    16-CTA cluster per candidate."""
+    n, k, h, km = 1_000_000, 24, 10, 32
+    x0, v0, u_c, u_s, _, _ = _stream_inputs(gen, dev, n, k, h, km)
+    kw = dict(length=L, dt=2.0 / (n / L) ** 0.5, n0=1.0, n_particles=n, rot=True, n_modes=None,
+              twin_c=None, twin_s=None)
+    _assert_stream_layouts_equal(x0, v0, u_c, u_s, kw, clusters=5)
 
 
 def test_spectral_horizon_beyond_16_modes_is_deterministic(dev, gen):

@@ -29,8 +29,8 @@ from plasma_control_tpu_torch.ops.grid import make_grid
 from plasma_control_tpu_torch.ops.kernels import _build
 from plasma_control_tpu_torch.ops.kernels.spectral_horizon import _state_floats
 from plasma_control_tpu_torch.ops.kernels.spectral_horizon import (
-    Geometry, launch_geometry, scratch_shape, spectral_horizon, spectral_horizon_supported,
-    state_in_shared,
+    Geometry, StreamLayout, launch_geometry, scratch_shape, spectral_horizon,
+    spectral_horizon_supported, state_in_shared, stream_layout,
 )
 
 torch.set_num_threads(1)
@@ -121,15 +121,92 @@ def test_global_scratch_layout(n, km, k, rot):
     geo = launch_geometry(n, rot, km)
     assert geo.cluster == 16 and geo.shared_bytes == 0 and geo.slice == -(-n // 16)
     assert _state_floats(rot, in_global=True) == (3 if rot else 2)
+    # one cluster of 16 CTAs per candidate, forced
     rows, width = scratch_shape(k, geo, rot)
     assert (rows, width) == (k * geo.cluster, _state_floats(rot, in_global=True) * geo.slice)
+    # the clusters the rule picks from a card's table: a row per CTA of the
+    # launch, the slices of its 16 / C virtual ranks side by side
+    layout = stream_layout(k, geo.cluster, TABLE)
+    per = geo.cluster // layout.cluster
+    assert scratch_shape(k, geo, rot, layout) == (
+        layout.clusters * layout.cluster, _state_floats(rot, in_global=True) * per * geo.slice)
     owners = np.zeros(n, dtype=np.int8)
-    for r in range(geo.cluster):
-        lo = min(r * geo.slice, n)
-        cnt = min(geo.slice, n - lo)
-        assert 0 <= cnt <= geo.slice  # the row's slice holds the CTA's particles
-        owners[lo:lo + cnt] += 1
+    for r in range(layout.cluster):
+        for j in range(per):
+            q = r * per + j  # CTA r's local rank j
+            lo = min(q * geo.slice, n)
+            cnt = min(geo.slice, n - lo)
+            assert 0 <= cnt <= geo.slice  # the row's slice holds the virtual rank's particles
+            owners[lo:lo + cnt] += 1
     assert (owners == 1).all()
+
+
+# clusters of C CTAs an H100 might hold at once (A(C)): 264 CTA slots at
+# two CTAs per SM, 224 at C=16 (14 clusters, as measured); and the
+# card's own table (cudaOccupancyMaxActiveClusters on an H100 80GB HBM3)
+TABLE = {16: 14, 8: 30, 4: 66, 2: 132, 1: 264}
+H100 = {16: 14, 8: 30, 4: 62, 2: 132, 1: 264}
+
+
+@pytest.mark.parametrize("table,k,want", [
+    (TABLE, 1, (16, 1)), (TABLE, 16, (16, 14)), (TABLE, 32, (16, 14)), (TABLE, 384, (4, 66)),
+    (H100, 1, (16, 1)), (H100, 16, (16, 14)), (H100, 24, (16, 14)), (H100, 32, (16, 14)),
+    (H100, 384, (2, 132)),
+], ids=["1", "16", "32", "384", "h100-1", "h100-16", "h100-24", "h100-32", "h100-384"])
+def test_stream_layout_choice(table, k, want):
+    """The physical cluster of the global path at 16 virtual ranks: the C
+    of least rounds x slices per CTA, the larger C on a tie. K=1: C=16 (one
+    slice per CTA); K=16 (the source's chunk): C=16, 2 rounds of one slice
+    (C=8: one round of two); K=32: C=16, 3 rounds of 14; K=384: C=4 in 6
+    rounds of 66 (24 slice-rounds, as C=2 in 3 rounds of 132), or on the
+    H100's table, whose A(4) is 62, C=2 (C=4: 28; C=16: 28)."""
+    got = stream_layout(k, 16, table)
+    assert got == StreamLayout(*want)
+    assert got.clusters == min(k, table[got.cluster])
+
+
+@pytest.mark.parametrize("k", [1, 16, 32, 384])
+def test_stream_layout_keeps_16_on_a_flat_table(k):
+    """A card that holds as many clusters at every C gains nothing from
+    smaller ones: C=16, min(K, A) clusters."""
+    assert stream_layout(k, 16, dict.fromkeys(TABLE, 14)) == StreamLayout(16, min(k, 14))
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("k", [1, 3, 16, 32, 100, 384, 1024])
+def test_stream_layout_divides_the_ranks(k, ranks):
+    """C divides the virtual ranks and fits; min(K, A(C)) clusters, so no
+    cluster is left without a candidate."""
+    got = stream_layout(k, ranks, TABLE)
+    assert ranks % got.cluster == 0 and got.cluster in TABLE
+    assert got.clusters == min(k, TABLE[got.cluster]) and 1 <= got.clusters <= k
+
+
+def test_stream_layout_skips_what_does_not_fit():
+    """A C the card cannot hold (A(C) = 0) is never chosen; none at all
+    raises."""
+    assert stream_layout(384, 16, {**H100, 2: 0}) == StreamLayout(8, 30)
+    # C=4 ties C=16 at 28 slice-rounds: the larger C, of 28 rounds
+    assert stream_layout(384, 16, {**H100, 2: 0, 8: 0}) == StreamLayout(16, 14)
+    with pytest.raises(RuntimeError, match="no cluster"):
+        stream_layout(4, 16, dict.fromkeys(TABLE, 0))
+
+
+@pytest.mark.parametrize("k,clusters", [(384, 132), (16, 14), (32, 14)])
+def test_stream_scratch_shrinks(k, clusters):
+    """The million solve's scratch (N=1M, Km=32, rot): a row per CTA of the
+    chosen clusters, 3 x 62500 floats per virtual rank, against K x 16 rows
+    of 3 x 62500 for one cluster per candidate (6144 rows at K=384,
+    4.608e9 B)."""
+    geo = launch_geometry(1_000_000, True, 32)
+    assert geo == Geometry(16, 62_500, 0)
+    layout = stream_layout(k, geo.cluster, H100)
+    assert layout.clusters == clusters
+    rows, width = scratch_shape(k, geo, True, layout)
+    assert (rows, width) == (clusters * layout.cluster, 3 * 62_500 * 16 // layout.cluster)
+    assert rows * width == clusters * 16 * 3 * 62_500
+    assert scratch_shape(k, geo, True) == (16 * k, 3 * 62_500)
+    assert clusters < k and rows * width < 16 * k * 3 * 62_500
 
 
 @pytest.mark.parametrize("n,rot,km,geo", [

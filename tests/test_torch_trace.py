@@ -212,11 +212,14 @@ def _launch(km, geometry, k=4, n=1000):
 def test_kernel_counters_without_a_launch(monkeypatch):
     """The wrapper's counters with the library stubbed out: one
     plan.blocks_kernel per launch beyond 16 modes, the global scratch's bytes
-    per launch that has one (K x C rows of 3 S floats for rot), nothing
-    where the state is in shared memory; off, nothing is recorded."""
+    and clusters per launch that has one (a card that holds one cluster of
+    4 CTAs: K=4 candidates on one cluster, 4 rows of 3 S floats for rot),
+    nothing where the state is in shared memory; off, nothing is
+    recorded."""
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
 
     monkeypatch.setattr(sh, "_params", lambda *a: None)
+    monkeypatch.setattr(sh, "cluster_fits", lambda *a: {1: 3, 2: 1, 4: 1, 8: 0, 16: 0})
     monkeypatch.setattr(sh._build, "call", lambda *a: None)
     scratch, shared = sh.Geometry(4, 250, 0), sh.Geometry(4, 250, 3000)
     _launch(32, scratch)
@@ -227,17 +230,21 @@ def test_kernel_counters_without_a_launch(monkeypatch):
         _launch(16, scratch)
         _launch(8, shared)
         got = trace.counters()
-    assert got == {"plan.blocks_kernel": 2, "plan.kernel_scratch_bytes": 2 * 4 * (4 * 4) * 750,
-                   "dropped": 0}
+    assert got == {"plan.blocks_kernel": 2, "plan.kernel_scratch_bytes": 2 * 4 * 4 * 750,
+                   "plan.stream_clusters": 2, "dropped": 0}
+    assert sh.stream_layout(4, 4, sh.cluster_fits()) == sh.StreamLayout(4, 1)
+    assert sh.scratch_shape(4, scratch, True, sh.StreamLayout(4, 1)) == (4, 750)
     assert sh.scratch_shape(4, scratch, True) == (16, 750)
 
 
 @pytest.mark.cuda
 def test_kernel_counters_on_the_card():
     """Real launches under a recording: the million-particle solve's chunk
-    (N=1M, K=16, Km=32: blocked, global scratch of 256 rows of 3 x 62500
-    floats), the blocked variant in shared memory (N=20000), and kernel 1 at
-    16 modes in shared memory (N=100000), which counts neither."""
+    (N=1M, K=16, Km=32: blocked, global scratch of a row per CTA of the
+    clusters stream_layout picks from the card's table, 3 x 62500 floats per
+    virtual rank, the clusters counted), the blocked variant in shared
+    memory (N=20000), and kernel 1 at 16 modes in shared memory (N=100000),
+    which counts neither."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from plasma_control_tpu_torch.ops.kernels import spectral_horizon as sh
@@ -251,7 +258,11 @@ def test_kernel_counters_on_the_card():
             sh.spectral_horizon(x0, v0, u, u, length=50.0, dt=0.01414, n0=1.0, n_particles=n,
                                 rot=True, n_modes=km)
         got = trace.counters()
-    rows, width = sh.scratch_shape(16, sh.launch_geometry(1_000_000, True, 32), True)
-    assert (rows, width) == (256, 3 * 62_500)
+    geo = sh.launch_geometry(1_000_000, True, 32)
+    assert sh.scratch_shape(16, geo, True) == (256, 3 * 62_500)  # one cluster per candidate
+    fits = sh.cluster_fits(torch.cuda.current_device(), True, False, True)
+    layout = sh.stream_layout(16, 16, fits)
+    rows, width = sh.scratch_shape(16, geo, True, layout)
+    assert (rows, width) == (layout.clusters * layout.cluster, 3 * 62_500 * 16 // layout.cluster)
     assert got == {"plan.blocks_kernel": 2, "plan.kernel_scratch_bytes": 4 * rows * width,
-                   "dropped": 0}
+                   "plan.stream_clusters": layout.clusters, "dropped": 0}
