@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --guard [PARENT_DIR]   # the [guard] section alone
+    python3 chip_smoke.py --grid-fullfid         # the [grid-fullfid] section alone
 
 Run from the root of a checkout on a machine with a Hopper GPU (sm_90a), the
 CUDA toolkit (nvcc) and PyTorch built for CUDA. It imports only
-``plasma_control_tpu_torch`` (and, for ``[guard]``'s steps/s, the benchmark
-harness in ``benchmark/``, which imports nothing else), never jax, and works
+``plasma_control_tpu_torch`` (and, for ``[guard]``'s steps/s and
+``[grid-fullfid]``'s cell, the benchmark harness in ``benchmark/``, which
+imports nothing else), never jax, and works
 through these phases;
 any failure exits non-zero:
 
@@ -95,6 +97,12 @@ any failure exits non-zero:
       step); then that launch against its plain version, one chunk's
       costs on the card against the CPU, and a three-step uncontrolled push
       of its state on kernels 2-3;
+      ``[grid-fullfid]``: the full-fidelity grid planner's benchmark cell
+      (bump-on-tail, N=100000, M=256, K=512, H=10, kdk on the whole
+      plasma): kernel 6 with its state in the (K, 2N) global scratch and the
+      operator read from L2, against its plain version on horizon sums,
+      timed beside its bound; three captured control steps of the cell's
+      controller, one launch of kernel 6 a replay, its scratch counter;
    i. three control steps of the twin slice at ``plan_modes=32``: kernel
       1c beyond 16 modes, one launch per solve;
    j. ``feedback_rollout`` at config-4's environment (N=100000, M=256,
@@ -1609,6 +1617,106 @@ def run_million(torch, rows: dict) -> None:
     require(bool(torch.isfinite(push.field_energy).all()), "million push PE not finite")
     log(f"[million] {MILLION_STEPS}-step uncontrolled push at N={cfg.n_particles} on kernels 2-3: "
         f"launches {launches}, PE {push.field_energy.tolist()}")
+
+
+GRID_FULLFID_CELL = "bump_on_tail_n100k.mpc_grid_fullfid_graph"
+GRID_FULLFID_STEPS = 3
+
+
+def run_grid_fullfid(torch, rows: dict) -> None:
+    """``[grid-fullfid]``: the full-fidelity grid planner's benchmark cell
+    (GRID_FULLFID_CELL: bump-on-tail, N=100000 on 256 cells, K=512, H=10,
+    kdk on the whole plasma). Kernel 6 at the cell's plan model, the
+    particle state in the (K, 2N) global scratch and the operator read from
+    L2, on one solve's clipped candidates from a start state of the cell,
+    against its plain version on horizon sums (rtol 2e-4), two launches
+    bitwise equal; its CUDA-event and device time beside the counted bound.
+    Then three captured control steps of the cell's controller (the
+    benchmark's program): one kernel 6 launch in each replay, and for each
+    warm-up step and the capture one launch of the wrapper and, under a
+    recording, the scratch's bytes in ``plan.grid_scratch_bytes``."""
+    sys.path.insert(0, str(ROOT))
+    from benchmark import harness, sampler
+    from benchmark.cell import load_cell
+    from plasma_control_tpu_torch.control.mpc import draw_noise
+    from plasma_control_tpu_torch.io import aot
+    from plasma_control_tpu_torch.ops.kernels import fused_step as fs
+    from plasma_control_tpu_torch.utils import trace
+
+    dev = torch.device("cuda")
+    cell = load_cell(GRID_FULLFID_CELL, ROOT)
+    cfg, ctrl, mpc, grid, act = _setup(torch, dev, sim=cell.sim, mpc=cell.mpc, ctrl=cell.control)
+    n, m, k, h = cfg.n_particles, cfg.n_mesh, mpc.n_candidates, mpc.horizon
+    require(fs._layout(n, m) == fs.Layout(True, False, False), f"layout {fs._layout(n, m)}")
+    x, v = sampler.start_states(cell.sim, GUARD_SEED, 1, dev)[0]
+    gen = torch.Generator(device=dev).manual_seed(25)
+    cand = torch.clamp(mpc.sigma0 * draw_noise(gen, mpc, h, 2 * ctrl.max_mode, device=dev),
+                       ctrl.coeff_min, ctrl.coeff_max)
+    u = act.compute_e_packed(cand)
+    eop = grid.e_op.T.contiguous()
+    kw = dict(n_mesh=m, length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0, kind=cfg.interpol)
+    call = lambda: fs.fused_packed_horizon(x, v, u, eop, **kw)  # noqa: E731
+    plain = lambda: fs.fused_packed_horizon_plain(x, v, u, eop, **kw)  # noqa: E731
+    got, ref = call(), plain()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), "grid-fullfid kernel 6: non-finite energies")
+    require(torch.equal(got, call()), "grid-fullfid kernel 6: two launches differ")
+    require(torch.allclose(got.sum(-1), ref.sum(-1), rtol=2e-4, atol=1e-6),
+            "grid-fullfid kernel 6 vs plain on horizon sums")
+    rel = float(((got.sum(-1) - ref.sum(-1)).abs() / ref.sum(-1).abs()).max())
+    step_rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+    dev_ms, ops = device_ms(torch, call, "horizon_kernel", reps=10)
+    rows["fused_packed_horizon_fullfid"].update(
+        launches=0, max_abs_err=float((got - ref).abs().max()), device_ms=dev_ms,
+        ms=time_ms(torch, call, reps=10), plain_ms=time_ms(torch, plain, reps=2),
+        library_ms=None,
+        **bound(grid_horizon_ops(k, h, n, m, merged=True), 4 * (2 * n + k * h * m + m * m + k * h)))
+    b = rows["fused_packed_horizon_fullfid"]
+    log(f"[grid-fullfid] fused_packed_horizon at the cell's plan model (K={k}, H={h}, N={n}, "
+        f"M={m}, {fs._layout(n, m)}, a {4 * k * 2 * n} B scratch): horizon sums max rel "
+        f"{rel:.3g} (rtol 2e-4), per step max rel {step_rel:.3g}; two launches bitwise equal; "
+        f"kernel {b['ms']:.4f} ms, device {dev_ms:.5f} ms per launch in {ops:.3g} device ops "
+        f"per call, plain {b['plain_ms']:.4f} ms; bound {b['bound_ms']:.6f} ms "
+        f"({b['bound_by']}, {b['ops']:.4g} operations) = {100 * b['bound_ms'] / dev_ms:.2f} %")
+    del ref
+
+    # the cell's controller, captured: the first call warms up, captures
+    # and replays once, under a recording
+    prog = harness.Program(cell, "cuda")
+    x, v = sampler.start_states(cell.sim, GUARD_SEED, 1, "cuda")[0]
+    prog.generator.manual_seed(GUARD_SEED)
+    state = [x, v, torch.zeros((prog.h, prog.d), device=dev)]
+    actions = []
+
+    def step():
+        out = prog.step(*state, prog.generator)
+        state[:] = out[:3]
+        actions.append(out[3].clone())
+        return out
+
+    before = fs.fused_packed_horizon.launches
+    with trace.recording(4096):
+        step()
+        counters = trace.counters()
+    made = aot.GraphedStep.WARMUP + 1
+    b["launches"] = fs.fused_packed_horizon.launches - before
+    require(b["launches"] == made
+            and counters.get("plan.grid_scratch_bytes") == made * 4 * k * 2 * n,
+            f"grid-fullfid: {b['launches']} launches, counters {counters}: {made} launches of "
+            f"a {4 * k * 2 * n} B scratch")
+    events = device_window(torch, step, GRID_FULLFID_STEPS, "horizon_kernel")
+    kernel_ms = sum(e["dur"] for e in events if "horizon_kernel" in e["name"]) / 1e3
+    times = synced_ms(torch, step, GRID_FULLFID_STEPS)
+    acts = torch.stack(actions)
+    require(bool(torch.isfinite(acts).all()), "grid-fullfid: non-finite actions")
+    log(f"[grid-fullfid] {GRID_FULLFID_STEPS} captured control steps of {GRID_FULLFID_CELL}: "
+        f"at the warm-up and capture {b['launches']} launches, counters {counters}; one "
+        f"kernel 6 launch a replay, "
+        f"{len(events) / GRID_FULLFID_STEPS:.0f} device ops a step, busy "
+        f"{busy_ms(events) / GRID_FULLFID_STEPS:.4f} ms of which kernel 6 "
+        f"{kernel_ms / GRID_FULLFID_STEPS:.4f} ms; ms per step (synchronised) "
+        f"{_spread(times)}; max |action| per step "
+        f"{[round(float(a.abs().max()), 6) for a in acts]}")
 
 
 def run_twin_km32(torch, rows: dict) -> None:
@@ -4381,6 +4489,8 @@ def main() -> int:
         "fidelity_ratio_grid": dict(
             source="plasma_control_tpu_torch/csrc/fidelity_ratio.cu",
             replaces="none: plasma_control_tpu/control/mpc.py::_fidelity_ratio, in XLA ops"),
+        "fused_packed_horizon_fullfid": dict(source="plasma_control_tpu_torch/csrc/fused_step.cu",
+                                             replaces="experiments/pallas_fused_step.py:452"),
     }
     timed(check_kernels, torch, rows)
     timed(check_grid_kernels, torch, rows)
@@ -4400,6 +4510,7 @@ def main() -> int:
     timed(run_twin_slice, torch, rows)
     timed(run_entry_point, torch)
     timed(run_million, torch, rows)
+    timed(run_grid_fullfid, torch, rows)
     timed(run_twin_km32, torch, rows)
     timed(run_feedback, torch)
     timed(run_damping, torch, rows)
@@ -4466,6 +4577,19 @@ def main_guard(parent: str | None) -> int:
     return 0
 
 
+def main_grid_fullfid() -> int:
+    """``--grid-fullfid``: the card, the build and ``[grid-fullfid]`` alone."""
+    import torch
+
+    find_card(torch)
+    build_kernels()
+    rows = {"fused_packed_horizon_fullfid": {}}
+    timed(run_grid_fullfid, torch, rows)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0)}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
@@ -4474,4 +4598,6 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--guard"]:
         sys.exit(main_guard(sys.argv[2] if len(sys.argv) > 2 else None))
+    if sys.argv[1:2] == ["--grid-fullfid"]:
+        sys.exit(main_grid_fullfid())
     sys.exit(main())

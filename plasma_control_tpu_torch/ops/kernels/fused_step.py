@@ -20,7 +20,11 @@ and where the particle state lives.
 A wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors (float32); any other device raises. Each kernel launch adds one to
 the wrapper's ``launches`` count (and, while :mod:`...utils.debug`'s NaN
-checks are on, has its inputs and outputs checked). The kernels sum their
+checks are on, has its inputs and outputs checked). Under a
+:mod:`...utils.trace` recording each launch of the horizon kernels (5, 6)
+also adds the bytes of its global scratch (the particle state's and the
+mesh arrays', 0 where both fit in shared memory) to
+``plan.grid_scratch_bytes``. The kernels sum their
 deposits in integers, so two launches on the same inputs return bitwise the same results. Any mesh
 size runs: beyond 3631 cells, where the mesh arrays exceed a CTA's shared
 memory, they live in a global scratch that the wrapper allocates
@@ -37,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils import trace
 from ...utils.debug import check_kernel
 from . import _build
 from ._build import KIND_ID, check_device
@@ -267,6 +272,8 @@ def _horizon_cuda(x, v, u_mesh_seq, e_op_t, *, n_mesh, length, dt, n0, kind, mer
                 None if scratch is None else scratch.data_ptr(),
                 None if mesh is None else mesh.data_ptr(), k,
                 _params(n, m, h, kind, length, dt, n0), int(merged), int(layout.eop))
+    trace.count("plan.grid_scratch_bytes",
+                sum(t.nbytes for t in (scratch, mesh) if t is not None))
     check_kernel(what, (xc, vc, uc, eop), (pe,))
     return pe
 

@@ -833,6 +833,35 @@ def test_grid_kernels_beyond_3631_cells_match_plain(dev, gen, n, m, k, h, kind):
         _assert_energies_close(got, plain(x[0], v[0], u, eop, **kw), kind)
 
 
+# the full-fidelity grid planner's plan model (N=100000, M=256): the mesh
+# arrays in shared memory, the particle state in a (K, 2N) global scratch
+# and the operator read from L2, both at once
+FULLFID_SHAPE = (100_000, 256, 8, 3)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_grid_horizon_with_state_and_operator_in_global_memory(dev, gen, kind):
+    """Kernel 6 at Layout(mesh=True, state=False, eop=False) against its
+    plain version at the bar of the tests above, and two launches bitwise
+    equal; under a recording each launch counts its state scratch, K x 2N
+    floats, in plan.grid_scratch_bytes."""
+    from plasma_control_tpu_torch.utils import trace
+
+    n, m, k, h = FULLFID_SHAPE
+    assert fs._layout(n, m) == fs.Layout(True, False, False)
+    x, v, u, eop = _grid_inputs(gen, dev, n, m, k, h, batched=False)
+    kw = dict(n_mesh=m, length=L, dt=0.1, kind=kind)
+    before = fs.fused_packed_horizon.launches
+    with trace.recording(8):
+        got = fs.fused_packed_horizon(x, v, u, eop, **kw)
+        again = fs.fused_packed_horizon(x, v, u, eop, **kw)
+        counted = trace.counters()
+    assert fs.fused_packed_horizon.launches == before + 2
+    assert counted == {"plan.grid_scratch_bytes": 2 * 4 * k * 2 * n, "dropped": 0}
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    _assert_energies_close(got, fs.fused_packed_horizon_plain(x, v, u, eop, **kw), kind)
+
+
 @pytest.mark.parametrize("plan_integrator", ["kdk", "leapfrog", "env"])
 @pytest.mark.parametrize("plan_kernel", ["auto", "xla"])
 def test_grid_candidate_costs_on_card_launch_the_kernels(dev, gen, plan_integrator, plan_kernel):
